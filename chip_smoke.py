@@ -1,0 +1,478 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and the script exits non-zero:
+  1. build the CUDA kernels from src/repro_torch/csrc (nvcc, all at once);
+  2. the codec kernels against their plain versions, exhaustively, bit-exact;
+  3. the posit GEMM kernel against its plain version at the serving shapes
+     of qwen2.5-14b;
+  4. the decode-attention kernel against its plain version;
+  5. the reduced qwen2.5-14b on the card against the same model on the CPU
+     (plain versions), then the main path: qwen2.5-14b at full width and
+     depth, random weights from a seed, P8_SERVE, 8 requests (prompt 64,
+     gen 16, 4 slots, greedy) through the continuous-batching engine, with
+     every kernel's launch count read around that run;
+  6. each kernel timed at its main-path shape beside its bound, its plain
+     version and, where one exists, a single PyTorch call.
+The lines before the last carry a {"kernels": [...]} summary and the card's
+name and power limit; the last line is {"ok": true, "device": {...}}.
+Details go to chiprun_out/chip_smoke_details.json.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch import kernels  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core.pcsr import P8_SERVE  # noqa: E402
+from repro_torch.core.types import BF16, F32, P8_0, P16_1  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.posit_attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref  # noqa: E402
+from repro_torch.kernels.posit_codec import ops as codec_ops  # noqa: E402
+from repro_torch.kernels.posit_codec import ref as codec_ref  # noqa: E402
+from repro_torch.kernels.posit_gemm.ops import posit_gemm  # noqa: E402
+from repro_torch.kernels.posit_gemm.ref import posit_gemm_ref  # noqa: E402
+from repro_torch.launch.engine import ContinuousBatchingEngine, poisson_requests  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+U = 2.0 ** -24              # f32 unit roundoff
+DEV = torch.device("cuda")
+QWEN = get_arch("qwen2.5-14b")
+GEMM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
+DETAILS: dict = {}
+
+
+def log(kind: str, **kw) -> None:
+    print(json.dumps({"phase": kind, **kw}), flush=True)
+
+
+def bound_ms(nbytes: float, flops: float = 0.0, kind: str = "bf16") -> tuple[float, str]:
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
+    """Device time of one call of ``fn``: every kernel it launches, summed by
+    torch.profiler over ``calls`` back-to-back calls, median over
+    ``windows``, after a warm-up call. CUDA events around the calls would
+    time this host's dispatch instead: it is slower than most of these
+    kernels, so the card idles between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if not e.key.startswith("aten::"))
+        per_call.append(us / calls / 1e3)
+    return statistics.median(per_call)
+
+
+def gen(seed: int) -> torch.Generator:
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    return g
+
+
+def bits(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).view(torch.int32)
+
+
+# --------------------------------------------------------------- phase 2 ----
+
+def check_codec() -> dict:
+    mismatches = 0
+    for nbits, dt in ((8, torch.uint8), (16, torch.uint16)):
+        codes = torch.arange(1 << nbits, device=DEV, dtype=torch.int32).to(dt)
+        for es in range(4):
+            for out in (torch.float32, torch.bfloat16):
+                got = codec_ops.decode(codes, es, nbits=nbits, out_dtype=out)
+                want = codec_ref.decode_ref(codes, es, nbits=nbits, out_dtype=out)
+                mismatches += int((bits(got) != bits(want)).sum())
+    g = gen(1)
+    sweep = [torch.randn(1 << 20, generator=g, device=DEV) * s for s in (1e-3, 1.0, 1e3)]
+    raw = torch.randint(0, 1 << 31, (1 << 20,), generator=g, device=DEV, dtype=torch.int32)
+    sweep.append(raw.view(torch.float32))
+    sweep.append(torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                               1e-40, -1e-42, 3e38, 2.0 ** -120, 2.0 ** 112], device=DEV))
+    edges = torch.tensor([2.0 ** e for e in range(-126, 128)], device=DEV)
+    sweep.append(torch.cat([edges, -edges, edges * 1.5, edges * (1 + 2.0 ** -23)]))
+    x = torch.cat(sweep).contiguous()
+    for nbits in (8, 16):
+        for es in range(4):
+            for ftz in (False, True):
+                got = codec_ops.encode(x, es, nbits=nbits, ftz=ftz)
+                want = codec_ref.encode_ref(x, es, nbits=nbits, ftz=ftz)
+                mismatches += int((got.to(torch.int32) != want.to(torch.int32)).sum())
+    assert mismatches == 0, f"codec kernels disagree with the plain codec on {mismatches} values"
+    return {"mismatches": mismatches, "encode_inputs": x.numel()}
+
+
+# --------------------------------------------------------------- phase 3 ----
+
+def gemm_cases():
+    """(name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, residual)."""
+    cases = []
+    for M in (1, 4, 64):
+        for K, N in GEMM_KN:
+            bias = (K, N) in ((5120, 5120), (5120, 1024))         # q / k / v
+            act = "silu" if (K, N) == (5120, 13824) else "none"   # gate
+            res = (K, N) in ((13824, 5120), (5120, 5120))            # down / wo
+            # as the model calls it: f32 activations, rounded to bf16 in the kernel
+            cases.append((f"p8 M{M} {K}x{N}", M, K, N, P8_0, torch.float32, F32,
+                          bias, act, res))
+    cases.append(("p16 f32 M4 5120x5120", 4, 5120, 5120, P16_1, torch.float32, F32,
+                  True, "gelu", True))
+    cases.append(("p8 out M4 5120x1024", 4, 5120, 1024, P8_0, torch.bfloat16, P8_0,
+                  True, "relu", False))
+    # 5..8 rows and a column count off every vector width: the scalar edge
+    cases.append(("p8 M6 5120x1001", 6, 5120, 1001, P8_0, torch.float32, F32,
+                  True, "silu", True))
+    return cases
+
+
+def make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, residual, seed=0):
+    g = gen(seed)
+    a = torch.randn((M, K), generator=g, device=DEV).to(a_dtype)
+    b = codec_ops.encode(torch.randn((K, N), generator=g, device=DEV) * K ** -0.5,
+                         b_fmt.es, nbits=b_fmt.nbits)
+    bi = torch.randn((N,), generator=g, device=DEV) * 0.1 if bias else None
+    r = torch.randn((M, N), generator=g, device=DEV) if residual else None
+    return a, b, bi, r
+
+
+def gemm_plain(a, b, bi, r, kw, chunk=16384):
+    """The plain version, over column blocks of B (the full-vocab weight's
+    int64 decode temporaries would not fit at once)."""
+    outs = []
+    for n0 in range(0, b.shape[1], chunk):
+        sl = slice(n0, n0 + chunk)
+        outs.append(posit_gemm_ref(a, b[:, sl].contiguous(), kw["es"],
+                                   a_fmt=kw["a_fmt"], b_fmt=kw["b_fmt"],
+                                   out_fmt=kw["out_fmt"],
+                                   compute_dtype=kw.get("compute_dtype"),
+                                   bias=None if bi is None else bi[sl],
+                                   residual=None if r is None else r[:, sl].contiguous(),
+                                   activation=kw["activation"]))
+    return torch.cat(outs, dim=1)
+
+
+def check_gemm() -> dict:
+    worst = 0.0
+    worst_ratio = 0.0
+    rows = []
+    for name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, res in gemm_cases():
+        a, b, bi, r = make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, res)
+        a_fmt = BF16 if a_dtype == torch.bfloat16 else F32
+        cd = torch.bfloat16 if b_fmt.nbits == 8 else torch.float32
+        kw = dict(es=(0, b_fmt.es, getattr(out_fmt, "es", 0)), a_fmt=a_fmt, b_fmt=b_fmt,
+                  out_fmt=out_fmt, activation=act, compute_dtype=cd)
+        got = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
+                         bias=bi, residual=r, activation=act, compute_dtype=cd)
+        want = gemm_plain(a, b, bi, r, kw)
+        if out_fmt == F32:
+            # both sum K f32 products (exact for bf16 operands) in different
+            # orders: |diff| <= 2*K*u*(|A|@|B| + |bias|) + 8u*(|y| + |res|)
+            absab = torch.cat([
+                torch.matmul(a.to(cd).float().abs(),
+                             codec_ref.decode_ref(b[:, n0:n0 + 16384].contiguous(),
+                                                  b_fmt.es, nbits=b_fmt.nbits).abs())
+                for n0 in range(0, N, 16384)], dim=1)
+            scale = absab + (bi.abs() if bi is not None else 0.0)
+            tol = 2 * K * U * scale + 8 * U * (want.abs() + (r.abs() if r is not None else 0))
+            err = (got - want).abs()
+            ratio = float((err / tol).max())
+            assert ratio <= 1.0, f"GEMM {name}: error {float(err.max())} exceeds its bound"
+            worst = max(worst, float(err.max()))
+            worst_ratio = max(worst_ratio, ratio)
+            rows.append({"case": name, "max_abs_err": float(err.max()), "err_over_bound": ratio})
+        else:
+            # posit out: the f32 sums may round to neighbouring codes
+            n = out_fmt.nbits
+            d = (got.to(torch.int32) - want.to(torch.int32)) & ((1 << n) - 1)
+            ulp = int(torch.minimum(d, (1 << n) - d).max())
+            assert ulp <= 1, f"GEMM {name}: {ulp} posit ulps apart"
+            rows.append({"case": name, "max_code_ulps": ulp})
+        del a, b, bi, r, got, want
+    torch.cuda.empty_cache()
+    DETAILS["gemm_checks"] = rows
+    return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio}
+
+
+# --------------------------------------------------------------- phase 4 ----
+
+def attn_inputs(kv_bits, *, B=4, Hq=40, Hkv=8, d=128, S=512, lengths=(0, 1, 300, 512),
+                seed=0):
+    g = gen(seed)
+    q = torch.randn((B, Hq, d), generator=g, device=DEV)
+    k = torch.randn((B, Hkv, S, d), generator=g, device=DEV)
+    v = torch.randn((B, Hkv, S, d), generator=g, device=DEV)
+    if kv_bits:
+        k = codec_ops.encode(k, 0, nbits=kv_bits)
+        v = codec_ops.encode(v, 0, nbits=kv_bits)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
+    return q, k, v, lens
+
+
+def check_attention() -> dict:
+    worst = 0.0
+    for kv_bits in (8, 16, 0):
+        q, k, v, lens = attn_inputs(kv_bits)
+        got = attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=kv_bits)
+        want = posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=kv_bits)
+        vmax = float(codec_ref.decode_ref(v, 0, nbits=kv_bits).abs().max()) if kv_bits \
+            else float(v.abs().max())
+        err = float((got - want).abs().max())
+        # f32 throughout; the score dot (d terms), softmax sum and PV sum (S
+        # terms each) run in other orders: (d + 2S) * u * max|V| * 4
+        tol = 4 * (q.shape[-1] + 2 * k.shape[2]) * U * vmax
+        assert err <= tol, f"attention kv_bits={kv_bits}: error {err} > {tol}"
+        assert bool((got[0] == 0).all()), "a length-0 row must return exact zeros"
+        worst = max(worst, err)
+    return {"max_abs_err": worst, "kv_bits": [8, 16, 0]}
+
+
+# --------------------------------------------------------------- phase 5 ----
+
+def check_small_model() -> dict:
+    """Reduced qwen2.5-14b: the card's kernels against the CPU's plain
+    versions, same seed-made weights, prefill + 4 greedy decode steps."""
+    cfg = QWEN.reduced()
+    cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params_cpu = cpu_model.init(0, P8_SERVE)
+    params_gpu = _to(params_cpu, DEV)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0),
+                         dtype=torch.int32)
+    lc, cc = cpu_model.prefill(params_cpu, toks, P8_SERVE, S_max=24)
+    lg, cg = gpu_model.prefill(params_gpu, toks.to(DEV), P8_SERVE, S_max=24)
+    worst, agree, clear = 0.0, 0, 0
+    bound = 0.05   # bf16 activations and p8 KV: one flipped rounding moves logits ~1e-2
+    for _ in range(5):
+        err = float((lg.cpu() - lc).abs().max())
+        worst = max(worst, err)
+        assert torch.isfinite(lg).all() and err <= bound, f"reduced model: logits off by {err}"
+        top2 = torch.topk(lc, 2, dim=-1).values
+        margin_clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+        same = lg.cpu().argmax(-1) == lc.argmax(-1)
+        assert bool(same[margin_clear].all()), "greedy tokens differ on a margin-clear step"
+        agree += int(same.sum())
+        clear += int(margin_clear.sum())
+        tok = lc.argmax(-1).to(torch.int32)
+        lc, cc = cpu_model.decode_step(params_cpu, tok, cc, P8_SERVE)
+        lg, cg = gpu_model.decode_step(params_gpu, tok.to(DEV), cg, P8_SERVE)
+    return {"max_logit_err": worst, "bound": bound, "greedy_agree": agree,
+            "margin_clear": clear}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def run_main_path() -> tuple[dict, dict]:
+    events = []
+    kernels.reset_launches()
+    report = serve("qwen2.5-14b", policy="p8-serve", max_slots=4, requests=8, prompt_len=64,
+                   gen=16, seed=0, device="cuda", emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the main path"
+    assert report["requests"] == 8, report["requests"]
+    assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the main path"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
+    DETAILS["serve_events"] = events
+    return report, launches
+
+
+def profile_decode(steps: int = 3) -> dict:
+    """Where a decode step's time goes: the full model at 4 busy slots, a
+    few steps under torch.profiler (device time by kernel name, and the
+    device-busy share of the window), plus the step time without it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_model(QWEN)
+    params = model.init(0, P8_SERVE)
+    eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=4, S_max=80)
+    for r in poisson_requests(4, arrival_rate=0.0, prompt_lens=(64,), max_new_tokens=16,
+                              vocab=QWEN.vocab, seed=1):
+        eng.submit(r)
+    eng.admit()
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    window_us = (time.perf_counter() - t0) * 1e6
+    # kernels only: the aten::* rows repeat their kernels' device time
+    by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                      if e.self_device_time_total > 0 and not e.key.startswith("aten::")),
+                     key=lambda r: -r[1])
+    busy_us = sum(us for _, us, _ in by_name)
+    del eng, params, model
+    torch.cuda.empty_cache()
+    # the profiler slows the host several-fold, so the idle share is the
+    # device time per step against the step time measured without it
+    busy_per_step_us = busy_us / steps
+    return {"step_ms": step_ms, "profiled_steps": steps, "profiled_window_us": window_us,
+            "device_busy_us_per_step": busy_per_step_us,
+            "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
+            "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
+                     c / steps} for n, us, c in by_name[:14]]}
+
+
+# --------------------------------------------------------------- phase 6 ----
+
+def time_kernels(launches: dict, errs: dict) -> list:
+    rows = []
+
+    def row(name, source, replaces, ms, plain_ms, nbytes, flops, kind, library_ms):
+        b_ms, by = bound_ms(nbytes, flops, kind)
+        rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": library_ms})
+
+    # encode: the K (or V) row every decode step writes, (B, Hkv, 1, hd) at 4 slots
+    x = torch.randn((4, QWEN.n_kv, 1, QWEN.hd), generator=gen(2), device=DEV)
+    row("posit_encode", "src/repro_torch/csrc/posit_codec.cu",
+        "src/repro/kernels/posit_codec/posit_codec.py:77",
+        time_ms(lambda: codec_ops.encode(x, 0, nbits=8)),
+        time_ms(lambda: codec_ref.encode_ref(x, 0, nbits=8)),
+        x.numel() * 5, 0.0, "f32", None)
+    # decode: the serve report's KV-cache health read, (L, B, Hkv, S, hd) p8
+    c = torch.randint(0, 256, (QWEN.n_layers, 4, QWEN.n_kv, 80, QWEN.hd), generator=gen(3),
+                      device=DEV, dtype=torch.int32).to(torch.uint8)
+    row("posit_decode", "src/repro_torch/csrc/posit_codec.cu",
+        "src/repro/kernels/posit_codec/posit_codec.py:54",
+        time_ms(lambda: codec_ops.decode(c, 0, nbits=8)),
+        time_ms(lambda: codec_ref.decode_ref(c, 0, nbits=8), windows=3, calls=2),
+        c.numel() * 5, 0.0, "f32", None)
+    del c
+    # gemm: every decode-step linear at 4 slots; the JSON row is the gate/up
+    # projection (the largest per-layer weight), the rest go to the details
+    shapes = []
+    for K, N in GEMM_KN:
+        # as the model calls it: f32 activations rounded to bf16 in the kernel
+        a, b, bi, r = make_gemm_inputs(4, K, N, P8_0, torch.float32, False, False, seed=4)
+        kw = dict(es=(0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation="none",
+                  compute_dtype=torch.bfloat16)
+        ms = time_ms(lambda: posit_gemm(a, b, (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
+                                        compute_dtype=torch.bfloat16))
+        plain = time_ms(lambda: gemm_plain(a, b, None, None, kw), windows=3, calls=1)
+        # the yardstick: one bf16 matmul on the weight decoded once (by the
+        # kernel, outside the timing and after the main path's count was read)
+        wdec = codec_ops.decode(b, 0, nbits=8, out_dtype=torch.bfloat16)
+        a16 = a.to(torch.bfloat16)
+        lib = time_ms(lambda: torch.matmul(a16, wdec))
+        nbytes = a.numel() * 4 + b.numel() + 4 * N * 4
+        shapes.append({"M": 4, "K": K, "N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bound_ms(nbytes, 2 * 4 * K * N)[0]})
+        if (K, N) == (5120, 13824):
+            row("posit_gemm", "src/repro_torch/csrc/posit_gemm.cu",
+                "src/repro/kernels/posit_gemm/posit_gemm.py:244", ms, plain, nbytes,
+                2 * 4 * K * N, "bf16", lib)
+        del a, b, wdec, a16
+    torch.cuda.empty_cache()
+    DETAILS["gemm_decode_shapes"] = shapes
+    # attention: a decode step of the main path, 4 slots at S_max = 80 (all full)
+    q, k, v, lens = attn_inputs(8, S=80, lengths=(80, 80, 80, 80), seed=5)
+    kd = codec_ref.decode_ref(k, 0, nbits=8).repeat_interleave(5, dim=1)
+    vd = codec_ref.decode_ref(v, 0, nbits=8).repeat_interleave(5, dim=1)
+    mask = torch.arange(80, device=DEV)[None, None, None, :] < lens[:, None, None, None]
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None], kd, vd, attn_mask=mask))
+    live = int(lens.sum())
+    nbytes = q.numel() * 4 * 2 + 2 * live * QWEN.n_kv * QWEN.hd + 16
+    row("posit_attention", "src/repro_torch/csrc/posit_attention.cu",
+        "src/repro/kernels/posit_attention/posit_attention.py:131",
+        time_ms(lambda: attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=8)),
+        time_ms(lambda: posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=8)),
+        nbytes, 4.0 * QWEN.n_heads * QWEN.hd * live, "f32", lib)
+    q5, k5, v5, l5 = attn_inputs(8, lengths=(512, 512, 512, 512), seed=6)
+    DETAILS["attention_S512_ms"] = time_ms(
+        lambda: attn_ops.decode_attention(q5, k5, v5, l5, 0, kv_bits=8))
+    return rows
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    seconds = build.build()
+    log("build", seconds_each=seconds, seconds=time.perf_counter() - t0)
+
+    log("codec", **check_codec())
+    gemm_res = check_gemm()
+    log("gemm", **gemm_res)
+    attn_res = check_attention()
+    log("attention", **attn_res)
+    log("reduced_model", **check_small_model())
+
+    t0 = time.perf_counter()
+    report, launches = run_main_path()
+    log("main_path", seconds=time.perf_counter() - t0, launches=launches,
+        **{k: report[k] for k in ("arch", "requests", "tokens", "decode_tok_per_s",
+                                  "p50_token_ms", "p95_token_ms", "p50_ttft_ms", "decode_steps",
+                                  "setup_s", "makespan_s", "kv_bytes_per_token", "kv_absmax")})
+    DETAILS["serve_report"] = report
+    prof = profile_decode()
+    log("profile", **{k: v for k, v in prof.items() if k != "top"})
+    DETAILS["decode_profile"] = prof
+
+    errs = {"posit_encode": 0.0, "posit_decode": 0.0,
+            "posit_gemm": gemm_res["max_abs_err"], "posit_attention": attn_res["max_abs_err"]}
+    rows = time_kernels(launches, errs)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    DETAILS.update(kernels=rows, nvidia_smi=smi, seconds=time.perf_counter() - t_start)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_smoke_details.json").write_text(json.dumps(DETAILS, indent=1, default=str))
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,25 @@
+"""Architecture registry of the port: the dense-family configs.
+
+The other families of the reference (moe, gemma3, zamba, xlstm, whisper,
+vlm) are not ported yet.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelCfg
+
+ARCH_IDS = ("phi3-mini-3.8b", "qwen2.5-14b", "yi-34b")
+
+
+def get_arch(name: str) -> ModelCfg:
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown or unported architecture {name!r}; "
+                       f"the port has {ARCH_IDS}")
+    mod = importlib.import_module(
+        "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
+    return mod.CONFIG
+
+
+def list_archs() -> tuple[str, ...]:
+    return ARCH_IDS

@@ -1,0 +1,7 @@
+"""Phi-3-mini 3.8B: RoPE SwiGLU dense [arXiv:2404.14219]."""
+from repro_torch.configs.base import ModelCfg
+
+CONFIG = ModelCfg(
+    name="phi3-mini-3.8b", family="dense",
+    n_layers=32, d_model=3072, n_heads=32, n_kv=32, d_ff=8192, vocab=32064,
+)

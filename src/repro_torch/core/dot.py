@@ -1,0 +1,117 @@
+"""Posit GEMM front door: the epilogue contract, the format-pair plan and the
+weights-only ``posit_matmul_wx`` every linear layer calls.
+
+``posit_matmul_wx`` goes through ``kernels.posit_gemm.ops.posit_gemm``: the
+hand-written kernel for CUDA tensors, its plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.types import BF16, F32, Fmt, FloatFmt, PositFmt, compute_dtype_for
+
+# Activations a fused epilogue can apply. gelu is the tanh approximation,
+# the reference's default.
+ACTIVATIONS = ("none", "gelu", "silu", "relu")
+
+
+def _apply_activation(y: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "none":
+        return y
+    if activation == "gelu":
+        return F.gelu(y, approximate="tanh")
+    if activation == "silu":
+        return F.silu(y)
+    if activation == "relu":
+        return F.relu(y)
+    raise ValueError(f"activation must be one of {ACTIVATIONS}, got {activation!r}")
+
+
+def apply_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
+                   activation: str, residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """The GEMM epilogue contract: ``act(y + bias) + residual``, in f32."""
+    y = y.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    y = _apply_activation(y, activation)
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    return y
+
+
+@dataclasses.dataclass(frozen=True)
+class FormatPlan:
+    """Resolved dispatch plan for one (rs1, rs2) format pair.
+
+    The compute dtype is the lossless-decode meet of the two operands: bf16
+    only when both decode exactly into bf16, else f32.
+    """
+
+    compute_dtype: torch.dtype
+    decode_a: bool
+    decode_b: bool
+    encode_out: bool
+
+
+def format_pair_plan(a_fmt: Fmt, b_fmt: Fmt, out_fmt: Fmt = F32) -> FormatPlan:
+    ca, cb = compute_dtype_for(a_fmt), compute_dtype_for(b_fmt)
+    return FormatPlan(
+        compute_dtype=ca if ca == cb else torch.float32,
+        decode_a=isinstance(a_fmt, PositFmt),
+        decode_b=isinstance(b_fmt, PositFmt),
+        encode_out=isinstance(out_fmt, PositFmt),
+    )
+
+
+def float_fmt(dtype: torch.dtype) -> FloatFmt:
+    """The float pcsr slot that stores ``dtype``."""
+    return {torch.float32: F32, torch.bfloat16: BF16}[dtype]
+
+
+def posit_matmul_wx(
+    x: torch.Tensor,
+    w_codes: torch.Tensor,
+    w_fmt: PositFmt,
+    *,
+    es: Optional[int] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    out_dtype: Optional[torch.dtype] = None,
+    bias: Optional[torch.Tensor] = None,
+    activation: str = "none",
+    residual: Optional[torch.Tensor] = None,
+    out_fmt: Optional[PositFmt] = None,
+    es_out: Optional[int] = None,
+) -> torch.Tensor:
+    """x @ decode(W) with the fused epilogue, the weights-only linear path.
+
+    x: (..., K) float; w_codes: (K, N) posit codes; bias (N,); residual of
+    the output's shape. Output float (..., N) in ``out_dtype`` (default
+    x.dtype), or posit codes when ``out_fmt`` is given.
+    """
+    from repro_torch.kernels.posit_gemm.ops import posit_gemm
+
+    if compute_dtype is None:
+        compute_dtype = compute_dtype_for(w_fmt)
+    K = x.shape[-1]
+    N = w_codes.shape[-1]
+    lead = x.shape[:-1]
+    # the kernel rounds A to the compute dtype as it stages it (a separate
+    # cast would be one more launch per linear)
+    a = x.reshape(-1, K).contiguous()
+    res = None if residual is None else residual.reshape(-1, N).contiguous()
+    if out_fmt is not None:
+        ofmt = out_fmt
+    else:
+        ofmt = float_fmt(out_dtype if out_dtype is not None else x.dtype)
+    y = posit_gemm(
+        a, w_codes,
+        (0, w_fmt.es if es is None else es,
+         0 if out_fmt is None else (out_fmt.es if es_out is None else es_out)),
+        a_fmt=float_fmt(x.dtype), b_fmt=w_fmt, out_fmt=ofmt,
+        bias=bias, residual=res, activation=activation,
+        compute_dtype=compute_dtype)
+    return y.reshape(*lead, N)

@@ -1,0 +1,51 @@
+"""Hand-written Hopper kernels of the port, one package per TPU kernel.
+
+Each ``kernels/<name>/ops.py`` wrapper takes a CPU tensor to the plain torch
+version in ``ref.py`` and a CUDA tensor to the CUDA kernel in ``csrc/``, and
+nothing else: there is no fallback. ``LAUNCHES`` counts the kernel launches of
+each wrapper (plain integers, added to where a wrapper calls its kernel).
+"""
+from __future__ import annotations
+
+import torch
+
+LAUNCHES: dict[str, int] = {
+    "posit_decode": 0,
+    "posit_encode": 0,
+    "posit_gemm": 0,
+    "posit_attention": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU (the plain-version route).
+
+    A CUDA tensor means the kernel; tensors on mixed or other devices raise.
+    """
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"kernel operands must all be on one CUDA device or all on "
+                     f"the CPU, got {sorted(str(t.device) for t in tensors)}")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def check_rc(rc: int, name: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launcher."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

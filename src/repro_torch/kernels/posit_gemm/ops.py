@@ -1,0 +1,141 @@
+"""Front door for the fused posit GEMM: the CUDA kernel for CUDA tensors, the
+plain version (``ref.py``) for CPU tensors."""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.core.dot import ACTIVATIONS, format_pair_plan
+from repro_torch.core.pcsr import OperandSlots
+from repro_torch.core.types import BF16, F32, Fmt, PositFmt
+from repro_torch.kernels import build, check_rc, on_cpu, require, stream_handle
+from repro_torch.kernels.posit_gemm import ref
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "posit_gemm_launch": (_P, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),
+}
+_ACT = {a: i for i, a in enumerate(ACTIVATIONS)}
+
+
+def _lib():
+    return build.load("posit_gemm", _SIGNATURES)
+
+
+def _kind(fmt: Fmt) -> tuple[int, torch.dtype]:
+    """(storage kind of csrc/posit_codec.cuh, torch dtype) of a pcsr slot."""
+    if isinstance(fmt, PositFmt):
+        return (2 if fmt.nbits == 8 else 3), fmt.storage_dtype
+    require(fmt in (F32, BF16), f"the GEMM kernel takes f32/bf16 float slots, got {fmt}")
+    return (0 if fmt == F32 else 1), fmt.dtype
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
+    """(splits, k_per_split) of the K dimension over blockIdx.z.
+
+    M <= 8 (the decode kernel, 256 columns a block, two blocks per SM): as
+    many splits as fit the grid into one wave of two blocks per SM, so no
+    second wave runs a handful of blocks. Larger M (64 x 64 tiles): about
+    two blocks per SM. The widths mirror ``launch_kinds`` in
+    csrc/posit_gemm.cu. For M <= 8 the plan does not depend on M, so rows of
+    a decode batch get the same summation order whatever the batch size.
+    """
+    if M <= 8:
+        tiles = -(-N // 256)
+        splits = max(1, min(2 * sms // tiles, K // 128))
+    else:
+        tiles = -(-N // 64) * -(-M // 64)
+        splits = max(1, min(-(-2 * sms // tiles), K // 64))
+    bk = 32 if M <= 8 else 16
+    k_per_split = -(-(-(-K // splits)) // bk) * bk
+    return -(-K // k_per_split), k_per_split
+
+
+def posit_gemm(
+    a: torch.Tensor, b: torch.Tensor, es, *, a_fmt: Fmt, b_fmt: Fmt, out_fmt: Fmt,
+    bias: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+    activation: str = "none",
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """O = epilogue(decode(A) @ decode(B)), encoded per ``out_fmt``.
+
+    A (M, K), B (K, N): posit codes or float per their slots; es = (es_a,
+    es_b, es_out) ints; bias (N,) f32; residual (M, N) f32; epilogue =
+    ``act(acc + bias) + residual``.
+    """
+    require(activation in ACTIVATIONS,
+            f"activation must be one of {ACTIVATIONS}, got {activation!r}")
+    require(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
+            f"GEMM shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    M, K = a.shape
+    N = b.shape[1]
+    require(bias is None or tuple(bias.shape) == (N,), f"bias must be ({N},)")
+    require(residual is None or tuple(residual.shape) == (M, N),
+            f"residual must be ({M}, {N})")
+    if compute_dtype is None:
+        compute_dtype = format_pair_plan(a_fmt, b_fmt).compute_dtype
+    require(compute_dtype in (torch.float32, torch.bfloat16),
+            f"compute dtype must be float32 or bfloat16, got {compute_dtype}")
+    es = tuple(int(e) for e in es)
+    extra = [t for t in (bias, residual) if t is not None]
+    if on_cpu(a, b, *extra):
+        return ref.posit_gemm_ref(a, b, es, a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
+                                  bias=bias, residual=residual, activation=activation,
+                                  compute_dtype=compute_dtype)
+    a_kind, a_dtype = _kind(a_fmt)
+    b_kind, b_dtype = _kind(b_fmt)
+    out_kind, out_dtype = _kind(out_fmt)
+    require(a.dtype == a_dtype, f"A must be {a_dtype} for slot {a_fmt}, got {a.dtype}")
+    require(b.dtype == b_dtype, f"B must be {b_dtype} for slot {b_fmt}, got {b.dtype}")
+    for name, t in (("A", a), ("B", b), ("bias", bias), ("residual", residual)):
+        if t is None:
+            continue
+        require(t.is_contiguous(), f"{name} must be contiguous")
+        if name in ("bias", "residual"):
+            require(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+    out = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    if M == 0 or N == 0:
+        return out
+    splits, k_per_split = split_plan(M, N, K, _sm_count(a.device.index or 0))
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+               if splits > 1 else None)
+    rc = _lib().posit_gemm_launch(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        None if partial is None else partial.data_ptr(),
+        M, N, K, a_kind, b_kind, out_kind, es[0], es[1], es[2], _ACT[activation],
+        int(compute_dtype == torch.bfloat16), splits, k_per_split, stream_handle(a))
+    check_rc(rc, "posit_gemm")
+    kernels.LAUNCHES["posit_gemm"] += 1
+    return out
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
+         es_a: Optional[int] = None, es_b: Optional[int] = None,
+         es_out: Optional[int] = None, bias=None, activation: str = "none",
+         residual=None) -> torch.Tensor:
+    """O = epilogue(decode(A) @ decode(B)) -> encode, per the pcsr slots."""
+    if slots.dataflow == "quire" or slots.rs2_packed:
+        raise NotImplementedError(
+            "the quire dataflow and packed-p8 weights are not ported yet")
+
+    def _es(x, fmt):
+        if x is not None:
+            return x
+        return fmt.es if isinstance(fmt, PositFmt) else 0
+
+    return posit_gemm(a, b, (_es(es_a, slots.rs1), _es(es_b, slots.rs2),
+                             _es(es_out, slots.rd)),
+                      a_fmt=slots.rs1, b_fmt=slots.rs2, out_fmt=slots.rd,
+                      bias=bias, residual=residual, activation=activation)

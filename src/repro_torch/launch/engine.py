@@ -1,0 +1,271 @@
+"""Slot-based continuous-batching serving engine over the ragged KV cache.
+
+The decode batch is a fixed grid of ``max_slots`` slots sharing one model
+cache. Requests wait in a FIFO queue, are prefilled into a free slot the
+moment one exists (a B=1 prefill, then a copy of that row into the grid; no
+other slot is touched), decode in lockstep as one batch while each row masks
+by its own length, and leave on EOS or max length, freeing the slot.
+
+Greedy decoding is ``temperature=0``; otherwise temperature / top-k sampling
+from a ``torch.Generator`` seeded per engine. The reference's observability,
+fault-tolerance, snapshot and streaming planes are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request."""
+    rid: int
+    prompt: np.ndarray              # (prompt_len,) int32 token ids
+    max_new_tokens: int = 16
+    arrival_time: float = 0.0       # seconds since engine start
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
+
+
+@dataclasses.dataclass
+class Completion:
+    """Per-request serving record (tokens + latency breakdown)."""
+    rid: int
+    prompt_len: int
+    tokens: list                    # generated token ids (includes EOS if hit)
+    arrival_time: float
+    admitted_time: float
+    finished_time: float
+    token_times: list               # absolute emission time of each token
+    finish_reason: str = ""         # eos | max_new | cache_full
+
+    @property
+    def ttft_s(self) -> float:
+        return self.token_times[0] - self.arrival_time
+
+    def per_token_s(self) -> list:
+        """Inter-token latencies (the first token measured from admission)."""
+        starts = [self.admitted_time] + self.token_times[:-1]
+        return [t - s for s, t in zip(starts, self.token_times)]
+
+
+def poisson_requests(n: int, *, arrival_rate: float, prompt_lens=(16, 24, 32),
+                     max_new_tokens: int = 16, vocab: int = 32000,
+                     seed: int = 0) -> list:
+    """n requests with exponential inter-arrival times (rate = req/s);
+    ``arrival_rate <= 0`` means everything arrives at t=0. Prompt lengths
+    cycle through ``prompt_lens``."""
+    rng = np.random.default_rng(seed)
+    t = 0.0
+    reqs = []
+    for i in range(n):
+        if arrival_rate > 0:
+            t += float(rng.exponential(1.0 / arrival_rate))
+        plen = int(prompt_lens[i % len(prompt_lens)])
+        reqs.append(Request(
+            rid=i, prompt=rng.integers(0, vocab, (plen,)).astype(np.int32),
+            max_new_tokens=max_new_tokens, arrival_time=t))
+    return reqs
+
+
+def _write_slot(full, one, slot: int) -> None:
+    """Copy row 0 of the B=1 cache ``one`` into row ``slot`` of ``full``, in
+    place. A leaf's batch axis is the one axis where the shapes differ;
+    leaves of equal shape (the scalar step counter) are left alone."""
+    if isinstance(full, dict):
+        for k in full:
+            _write_slot(full[k], one[k], slot)
+        return
+    if full.shape == one.shape:
+        return
+    axes = [i for i, (a, b) in enumerate(zip(full.shape, one.shape)) if a != b]
+    if len(axes) != 1 or one.shape[axes[0]] != 1:
+        raise ValueError(f"ambiguous batch axis for cache leaf {tuple(full.shape)} "
+                         f"vs {tuple(one.shape)}")
+    full.narrow(axes[0], slot, 1).copy_(one)
+
+
+def _sample(logits: torch.Tensor, gen: torch.Generator, temperature: float,
+            top_k: int) -> torch.Tensor:
+    """(B, V) logits -> (B,) tokens. temperature == 0 is greedy argmax."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, float("-inf"), logits)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=gen)[:, 0]
+
+
+class ContinuousBatchingEngine:
+    """Admission + decode + eviction over a fixed slot grid.
+
+    Drive it with :meth:`run` (wall-clock loop honoring arrival times) or by
+    hand with :meth:`submit` / :meth:`admit` / :meth:`step`.
+    """
+
+    def __init__(self, model, params, policy, *, max_slots: int, S_max: int,
+                 eos_id: Optional[int] = None, temperature: float = 0.0,
+                 top_k: int = 0, seed: int = 0):
+        self.model, self.params, self.policy = model, params, policy
+        self.device = model.device
+        self.max_slots, self.S_max = max_slots, S_max
+        self.eos_id, self.temperature, self.top_k = eos_id, temperature, top_k
+        self.reset(seed)
+
+    def reset(self, seed: int = 0) -> None:
+        """Clear all serving state (cache, slots, queue, completions)."""
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.cache = self.model.init_cache(self.max_slots, self.S_max, self.policy)
+        self.lens = np.zeros((self.max_slots,), np.int32)
+        self.last_token = torch.zeros((self.max_slots,), dtype=torch.int32,
+                                      device=self.device)
+        self.active = np.zeros((self.max_slots,), bool)
+        self.slot_req: list = [None] * self.max_slots
+        self.slot_tokens: list = [[] for _ in range(self.max_slots)]
+        self.slot_token_times: list = [[] for _ in range(self.max_slots)]
+        self.slot_admitted = np.zeros((self.max_slots,), np.float64)
+        self.queue: list = []
+        self.completions: list = []
+        self.steps = 0
+        self.nonfinite_rows = 0   # active rows whose logits held NaN/inf
+
+    # ---------------------------------------------------------- client API ----
+    def submit(self, req: Request) -> int:
+        self.queue.append(req)
+        return req.rid
+
+    def results(self) -> list:
+        return list(self.completions)
+
+    def result(self, rid: int):
+        for c in self.completions:
+            if c.rid == rid:
+                return c
+        return None
+
+    # ------------------------------------------------------------- admission --
+    def free_slots(self) -> list:
+        return [i for i in range(self.max_slots) if not self.active[i]]
+
+    def _prefill_into_slot(self, req: Request, slot: int):
+        tokens = torch.as_tensor(req.prompt, dtype=torch.int32, device=self.device)[None]
+        logits, one = self.model.prefill(self.params, tokens, self.policy, S_max=self.S_max)
+        row_len = int(one["lens"][0])
+        if self.max_slots == 1:
+            self.cache = one
+        else:
+            _write_slot(self.cache, one, slot)
+        return logits, row_len
+
+    def admit(self, now: float = 0.0, clock: Optional[Callable] = None) -> int:
+        """Prefill queued requests into free slots; returns #admitted. The
+        first token of each admitted request comes from its prefill logits."""
+        admitted = 0
+        for slot in self.free_slots():
+            if not self.queue:
+                break
+            req = self.queue.pop(0)
+            t_admit = clock() if clock else now
+            if req.prompt_len + req.max_new_tokens > self.S_max:
+                raise ValueError(
+                    f"request {req.rid}: prompt {req.prompt_len} + "
+                    f"max_new {req.max_new_tokens} exceeds S_max {self.S_max}")
+            logits, row_len = self._prefill_into_slot(req, slot)
+            tok = int(self._next_token(logits)[0])   # waits for the prefill
+            t_first = clock() if clock else now
+            self.lens[slot] = row_len
+            self.last_token[slot] = tok
+            self.active[slot] = True
+            self.slot_req[slot] = req
+            self.slot_tokens[slot] = [tok]
+            self.slot_token_times[slot] = [t_first]
+            self.slot_admitted[slot] = t_admit
+            self._sync_lens()
+            admitted += 1
+            self._maybe_finish(slot, tok, t_first)
+        return admitted
+
+    def _next_token(self, logits: torch.Tensor) -> torch.Tensor:
+        return _sample(logits, self._gen, self.temperature, self.top_k)
+
+    def _sync_lens(self) -> None:
+        """The engine's slot lengths are authoritative: push them into the
+        cache's per-row positions (recycled slots restart)."""
+        self.cache["lens"] = torch.as_tensor(self.lens.copy(), dtype=torch.int32,
+                                             device=self.device)
+
+    # --------------------------------------------------------------- decode ---
+    def step(self, now: float = 0.0) -> int:
+        """One decode step over the whole slot grid; returns #tokens emitted."""
+        if not self.active.any():
+            return 0
+        logits, self.cache = self.model.decode_step(self.params, self.last_token,
+                                                    self.cache, self.policy)
+        self.steps += 1
+        toks = self._next_token(logits).to(torch.int32)
+        bad = (~torch.isfinite(logits)).any(dim=-1)
+        toks_np, bad_np = torch.stack([toks, bad.to(torch.int32)]).cpu().numpy()
+        self.lens += 1          # decode_step advanced every row
+        self.last_token = toks
+        emitted = 0
+        for slot in range(self.max_slots):
+            if not self.active[slot]:
+                continue
+            self.nonfinite_rows += int(bad_np[slot])
+            tok = int(toks_np[slot])
+            self.slot_tokens[slot].append(tok)
+            self.slot_token_times[slot].append(now)
+            emitted += 1
+            self._maybe_finish(slot, tok, now)
+        return emitted
+
+    def _maybe_finish(self, slot: int, tok: int, now: float) -> bool:
+        req = self.slot_req[slot]
+        reason = ""
+        if self.eos_id is not None and tok == self.eos_id:
+            reason = "eos"
+        elif len(self.slot_tokens[slot]) >= req.max_new_tokens:
+            reason = "max_new"
+        elif self.lens[slot] + 1 >= self.S_max:
+            reason = "cache_full"
+        if reason:
+            self._evict(slot, now, reason)
+        return bool(reason)
+
+    def _evict(self, slot: int, now: float, reason: str) -> None:
+        req = self.slot_req[slot]
+        self.completions.append(Completion(
+            rid=req.rid, prompt_len=req.prompt_len,
+            tokens=list(self.slot_tokens[slot]), arrival_time=req.arrival_time,
+            admitted_time=float(self.slot_admitted[slot]), finished_time=now,
+            token_times=list(self.slot_token_times[slot]), finish_reason=reason))
+        self.active[slot] = False
+        self.slot_req[slot] = None
+
+    # ------------------------------------------------------------------ run ---
+    def run(self, requests: list, *, clock: Optional[Callable] = None) -> list:
+        """Serve ``requests`` to completion, honoring their arrival times
+        against ``clock`` (default: wall seconds from the first call)."""
+        pending = sorted(requests, key=lambda r: r.arrival_time)
+        t0 = time.perf_counter()
+        clock = clock or (lambda: time.perf_counter() - t0)
+        while pending or self.queue or self.active.any():
+            now = clock()
+            while pending and pending[0].arrival_time <= now:
+                self.submit(pending.pop(0))
+            if self.queue and self.free_slots():
+                self.admit(clock=clock)
+            if self.active.any():
+                self.step(now=clock())
+            elif pending:
+                time.sleep(min(0.001, pending[0].arrival_time - now))
+        return list(self.completions)

@@ -1,0 +1,160 @@
+"""Serving CLI: continuous batching over the ragged posit KV cache.
+
+    python -m repro_torch.launch.serve --arch qwen2.5-14b --continuous \
+        --max-slots 4 --requests 8 --prompt-len 64 --gen 16 --policy p8-serve
+
+Weights are random, drawn from ``--seed`` on the device, and quantized to
+``policy.weights`` layer by layer as they are drawn. Every stdout line is one
+JSON object with a ``"kind"`` key: one ``serve/prefill`` line per request
+(its prefill time), then one ``serve/report`` (tokens/s, per-token latency
+percentiles, KV bytes per token, kernel launches during the run, and the
+KV cache's decoded health). Runs on the CUDA device unless ``--device cpu``.
+Only the continuous mode is ported; the reference's static mode, paged
+engine and observability/fault-tolerance flags are not.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import get_arch
+from repro_torch.core.pcsr import TransPolicy, parse_policy
+from repro_torch.kernels.posit_codec import ops as codec_ops
+from repro_torch.launch.engine import ContinuousBatchingEngine, Request, poisson_requests
+from repro_torch.models.registry import build_model
+
+
+def percentile_ms(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q) * 1e3) if values else 0.0
+
+
+def kv_cache_bytes(cache: dict) -> int:
+    """Bytes of the K/V arrays only (no length bookkeeping)."""
+    return sum(t.numel() * t.element_size() for t in (cache["kv"]["k"], cache["kv"]["v"]))
+
+
+def kv_health(cache: dict, policy: TransPolicy) -> dict:
+    """Decode the whole K/V cache through the codec kernel: NaR codes (which
+    decode to NaN) and the largest magnitude held. Empty for a float cache."""
+    fmt = policy.kv_cache
+    if fmt is None:
+        return {}
+    nar = 0
+    absmax = 0.0
+    for codes in (cache["kv"]["k"], cache["kv"]["v"]):
+        vals = codec_ops.decode(codes, fmt.es, nbits=fmt.nbits)
+        nar += int(torch.isnan(vals).sum())
+        absmax = max(absmax, float(torch.nan_to_num(vals, nan=0.0).abs().max()))
+    return {"kv_nar_codes": nar, "kv_absmax": absmax}
+
+
+def serve(arch: str, *, policy: str = "p8-serve", reduced: bool = False,
+          max_slots: int = 4, requests: int = 8, prompt_len: int = 64, gen: int = 16,
+          arrival_rate: float = 0.0, temperature: float = 0.0, top_k: int = 0,
+          seed: int = 0, device="cuda", emit: Callable[[dict], None] = None) -> dict:
+    """Build ``arch`` from ``seed``, serve ``requests`` through the
+    continuous-batching engine and return the report (also emitted)."""
+    emit = emit or (lambda ev: print(json.dumps(ev), flush=True))
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    pol = parse_policy(policy)
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(seed, pol)
+    S_max = prompt_len + gen
+    eng = ContinuousBatchingEngine(model, params, pol, max_slots=max_slots, S_max=S_max,
+                                   temperature=temperature, top_k=top_k, seed=seed)
+    # warm up (kernel builds and loads, allocator) before the serving clock
+    eng.submit(Request(rid=-1, prompt=np.zeros((prompt_len,), np.int32),
+                       max_new_tokens=min(3, gen)))
+    eng.admit()
+    eng.step()
+    eng.reset(seed=seed)
+    _sync(model.device)
+    setup_s = time.perf_counter() - t0
+
+    reqs = poisson_requests(requests, arrival_rate=arrival_rate, prompt_lens=(prompt_len,),
+                            max_new_tokens=gen, vocab=cfg.vocab, seed=seed)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    completions = eng.run(reqs)
+    _sync(model.device)
+    makespan = max(time.perf_counter() - t0, 1e-9)
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+    for c in sorted(completions, key=lambda c: c.rid):
+        emit({"kind": "serve/prefill", "rid": c.rid, "prompt_len": c.prompt_len,
+              "prefill_ms": (c.token_times[0] - c.admitted_time) * 1e3})
+    n_tokens = sum(len(c.tokens) for c in completions)
+    per_tok = [t for c in completions for t in c.per_token_s()[1:]]
+    kv_b = kv_cache_bytes(eng.cache)
+    report = {
+        "kind": "serve/report",
+        "arch": cfg.name,
+        "policy": pol.describe(),
+        "device": (torch.cuda.get_device_name(model.device)
+                   if model.device.type == "cuda" else "cpu"),
+        "mode": "continuous",
+        "requests": len(completions),
+        "max_slots": max_slots,
+        "arrival_rate": arrival_rate,
+        "tokens": n_tokens,
+        "decode_tok_per_s": n_tokens / makespan,
+        "decode_steps": eng.steps,
+        "makespan_s": makespan,
+        "setup_s": setup_s,
+        "p50_token_ms": percentile_ms(per_tok, 50),
+        "p95_token_ms": percentile_ms(per_tok, 95),
+        "p50_ttft_ms": percentile_ms([c.ttft_s for c in completions], 50),
+        "kv_cache_bytes": kv_b,
+        "kv_bytes_per_token": kv_b // (max_slots * S_max),
+        "kernel_launches": launches,
+        "nonfinite_logit_rows": eng.nonfinite_rows,
+        "completion_tokens": {c.rid: len(c.tokens) for c in completions},
+        "sample_tokens": min(completions, key=lambda c: c.rid).tokens[:8] if completions else [],
+        **kv_health(eng.cache, pol),
+    }
+    emit(report)
+    return report
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true", help="the reduced (CI-sized) config")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching (the only ported mode)")
+    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="Poisson arrivals per second (0: all at t=0)")
+    ap.add_argument("--policy", default="p8-serve",
+                    help="none | p8-serve | role=fmt,...,compute=bf16")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if not args.continuous:
+        ap.error("only --continuous serving is ported")
+    serve(args.arch, policy=args.policy, reduced=args.reduced, max_slots=args.max_slots,
+          requests=args.requests, prompt_len=args.prompt_len, gen=args.gen,
+          arrival_rate=args.arrival_rate, temperature=args.temperature, top_k=args.top_k,
+          seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,203 @@
+"""Attention for the dense decoder: prefill (full-sequence SDPA that fills the
+KV cache) and one decode step over a posit-coded KV cache.
+
+KV-cache transprecision: when ``policy.kv_cache`` is a posit format the cache
+holds uint8/uint16 codes. New K/V rows are encoded on write (the encode
+kernel); decode steps read the codes through the decode-attention kernel,
+which decodes tile by tile. Cache layout ``(B, Hkv, S, hd)``.
+
+The port updates the cache in place (the reference returns new arrays).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.pcsr import TransPolicy
+from repro_torch.kernels.posit_attention import ops as attn_ops
+from repro_torch.kernels.posit_codec import ops as codec_ops
+from repro_torch.models.layers import apply_linear, apply_rope, init_linear, rope_tables
+
+NEG_INF = -1e30
+Q_CHUNK = 512  # query-block size of the prefill SDPA
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnCfg:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_base: float = 10000.0
+    use_rope: bool = True
+    causal: bool = True
+    window: int = 0
+    is_cross: bool = False
+
+
+def init_attention(gen: torch.Generator, cfg: AttnCfg, *, device="cpu", wfmt=None) -> dict:
+    d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
+    kw = dict(device=device, wfmt=wfmt)
+    return {
+        "wq": init_linear(gen, d, H * hd, bias=cfg.qkv_bias, **kw),
+        "wk": init_linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, **kw),
+        "wv": init_linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, **kw),
+        "wo": init_linear(gen, H * hd, d, scale=(H * hd) ** -0.5, **kw),
+    }
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    return x.reshape(*x.shape[:-1], n, hd)
+
+
+def _sdpa_block(qg, k, v, scale, *, offset: int, causal: bool):
+    """One query block. qg: (B,Lq,Hkv,g,hd); k/v: (B,T,Hkv,hd); offset: the
+    absolute position of the block's first query. Returns (B,Lq,Hkv,g,hd)."""
+    Lq = qg.shape[1]
+    T = k.shape[1]
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32) * scale,
+                          k.to(torch.float32))
+    if causal:
+        qp = torch.arange(Lq, device=qg.device)[:, None] + offset
+        kp = torch.arange(T, device=qg.device)[None, :]
+        scores = torch.where((kp <= qp)[None, None, None], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
+
+
+def _sdpa(q, k, v, scale, *, causal: bool = True, q_chunk: int = Q_CHUNK):
+    """Prefill SDPA in plain torch (the reference computes it outside any
+    kernel too), one (B, H, q_chunk, T) score slab at a time.
+    q: (B,S,H,hd), k/v: (B,T,Hkv,hd)."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd)
+    outs = [_sdpa_block(qg[:, i:i + q_chunk], k, v, scale, offset=i, causal=causal)
+            for i in range(0, S, q_chunk)]
+    return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+# ------------------------------------------------------------- KV cache -------
+
+def _cache_dtype(policy: TransPolicy) -> torch.dtype:
+    fmt = policy.kv_cache
+    if fmt is not None:
+        return fmt.storage_dtype
+    return torch.float32 if policy.compute_dtype == "f32" else torch.bfloat16
+
+
+def init_kv_cache(B: int, S_max: int, cfg: AttnCfg, policy: TransPolicy, *,
+                  device="cpu", n_layers: Optional[int] = None) -> dict:
+    """Cache layout (B, Hkv, S_max, hd), posit codes if policy.kv_cache is
+    set; ``n_layers`` stacks one cache per layer on a leading axis."""
+    lead = () if n_layers is None else (n_layers,)
+    shape = lead + (B, cfg.n_kv, S_max, cfg.head_dim)
+    dt = _cache_dtype(policy)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "len": torch.zeros(lead + (B,), dtype=torch.int32, device=device)}
+
+
+def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos, policy: TransPolicy) -> None:
+    """Write (B, Hkv, s, hd) ``new`` into ``cache_arr`` at sequence offset
+    ``pos``, in place.
+
+    ``pos`` is an int (prefill block write) or a (B,) tensor of per-row write
+    indices with s == 1 (ragged decode). Rows whose index is past the cache
+    (recycled engine slots) are not written, as the reference's dropped
+    scatter does.
+    """
+    fmt = policy.kv_cache
+    if fmt is not None:
+        new = codec_ops.encode(new.to(torch.float32).contiguous(), fmt.es, nbits=fmt.nbits)
+    else:
+        new = new.to(cache_arr.dtype)
+    if isinstance(pos, int):
+        cache_arr[:, :, pos:pos + new.shape[2]] = new
+        return
+    if cache_arr.dtype == torch.uint16:  # torch indexes uint16 through int16 views
+        cache_arr, new = cache_arr.view(torch.int16), new.view(torch.int16)
+    B, _, S, _ = cache_arr.shape
+    rows = torch.arange(B, device=cache_arr.device)
+    keep = (pos < S)[:, None, None]
+    at = torch.clamp(pos, max=S - 1).long()
+    cache_arr[rows, :, at] = torch.where(keep, new[:, :, 0], cache_arr[rows, :, at])
+
+
+def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
+                      policy: TransPolicy, *,
+                      residual: Optional[torch.Tensor] = None) -> tuple:
+    """Full-sequence causal attention that also fills the KV cache (in place).
+    x: (B, S, D); ``residual`` fuses into the wo epilogue. Returns (y, cache)."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q = _split_heads(apply_linear(params["wq"], x, policy), H, hd)
+    k = _split_heads(apply_linear(params["wk"], x, policy), Hkv, hd)
+    v = _split_heads(apply_linear(params["wv"], x, policy), Hkv, hd)
+    if cfg.use_rope:
+        rope = rope_tables(torch.arange(S, device=x.device)[None], hd, cfg.rope_base)
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    Sc = cache["k"].shape[2]
+    if S > Sc:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache's {Sc} rows")
+    out = _sdpa(q, k, v, hd ** -0.5, causal=cfg.causal)
+    y = apply_linear(params["wo"], out.reshape(B, S, H * hd), policy, residual=residual)
+    _store(cache["k"], k.transpose(1, 2), 0, policy)
+    _store(cache["v"], v.transpose(1, 2), 0, policy)
+    cache["len"].fill_(S)
+    return y, cache
+
+
+def resolve_attn_impl(policy: TransPolicy, cfg: AttnCfg, *, rolling: bool = False) -> str:
+    """"kernel" wherever the decode-attention kernel's contract covers the
+    layer (everything but a non-rolling sliding window), else "xla"."""
+    impl = getattr(policy, "attn_impl", "auto")
+    if impl == "xla":
+        return "xla"
+    if cfg.window > 0 and not rolling and not cfg.is_cross:
+        if impl == "kernel":
+            raise ValueError(
+                "attn_impl='kernel' cannot serve a non-rolling "
+                f"sliding-window layer (window={cfg.window}); use a "
+                "window-sized rolling cache or attn_impl='auto'/'xla'")
+        return "xla"
+    return "kernel"
+
+
+def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: dict,
+                          pos: torch.Tensor, policy: TransPolicy, *,
+                          rolling: bool = False, rope=None,
+                          residual: Optional[torch.Tensor] = None) -> tuple:
+    """One decode step. x_t: (B, 1, D); pos: (B,) int32 per-row cache write
+    index (= the row's sequence position). Writes the new K/V row in place,
+    counts it in ``cache["len"]`` (clamped to the buffer size) and attends
+    through the decode-attention kernel. ``rope`` is the step's
+    ``rope_tables`` of ``pos`` (shared by every layer; made here when None);
+    ``residual`` fuses into the wo epilogue. Returns (y, cache)."""
+    B = x_t.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    if resolve_attn_impl(policy, cfg, rolling=rolling) != "kernel":
+        raise NotImplementedError("only the decode-attention kernel path is ported")
+    q = _split_heads(apply_linear(params["wq"], x_t, policy), H, hd)
+    kn = _split_heads(apply_linear(params["wk"], x_t, policy), Hkv, hd)
+    vn = _split_heads(apply_linear(params["wv"], x_t, policy), Hkv, hd)
+    if cfg.use_rope:
+        if rope is None:
+            rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
+        q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
+    _store(cache["k"], kn.transpose(1, 2), pos, policy)
+    _store(cache["v"], vn.transpose(1, 2), pos, policy)
+    # a slot never holds more than S_cache valid positions (recycled engine
+    # slots would otherwise grow `len` between eviction and reuse)
+    cache["len"].copy_(torch.clamp(cache["len"] + 1, max=cache["k"].shape[2]))
+    fmt = policy.kv_cache
+    out = attn_ops.decode_attention(
+        q.reshape(B, H, hd).contiguous(), cache["k"], cache["v"], cache["len"],
+        fmt.es if fmt is not None else 0, kv_bits=fmt.nbits if fmt is not None else 0,
+        rolling=rolling)
+    y = apply_linear(params["wo"], out.reshape(B, 1, H * hd).to(x_t.dtype), policy,
+                     residual=residual)
+    return y, cache

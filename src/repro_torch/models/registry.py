@@ -1,0 +1,50 @@
+"""Model registry: one uniform interface over the ported families.
+
+  model = build_model(cfg)                 # device="cuda" unless told otherwise
+  params = model.init(seed, policy)        # quantized layer by layer under a posit policy
+  logits, cache = model.prefill(params, tokens, policy, S_max=...)
+  logits, cache = model.decode_step(params, tokens_t, cache, policy)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelCfg
+from repro_torch.core.device import resolve_device
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelCfg
+    device: torch.device
+    init: Callable            # (seed, policy=None) -> params
+    init_cache: Callable      # (B, S_max, policy) -> cache
+    prefill: Callable         # (params, tokens, policy, S_max=None) -> (logits, cache)
+    decode_step: Callable     # (params, tokens_t, cache, policy) -> (logits, cache)
+
+
+def build_model(cfg: ModelCfg, device="cuda") -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet; the port serves the dense family")
+    dev = resolve_device(device)
+
+    def init(seed: int, policy=None) -> dict:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return transformer.init_lm(gen, cfg, device=dev, policy=policy)
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        init_cache=lambda B, S_max, pol: transformer.init_cache(cfg, B, S_max, pol,
+                                                                device=dev),
+        prefill=lambda p, tokens, pol, **kw: transformer.prefill(p, tokens, cfg, pol, **kw),
+        decode_step=lambda p, tok, cache, pol: transformer.decode_step(p, tok, cache, cfg,
+                                                                       pol),
+    )

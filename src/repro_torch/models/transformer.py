@@ -1,0 +1,131 @@
+"""Decoder-only LM assembly for the dense family: init, cache init, prefill
+and decode_step (the serving path).
+
+Parameters: ``{"embed": {"table"}, "blocks": [per-layer dicts], "final_norm",
+"lm_head"}``; the reference stacks the layers on a leading axis instead
+(``convert.params_from_jax`` maps one onto the other). The KV cache keeps the
+reference's stacked layout ``kv.k/v: (L, B, Hkv, S, hd)``, ``kv.len: (L, B)``,
+and is updated in place.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelCfg
+from repro_torch.core.pcsr import TransPolicy
+from repro_torch.models import attention as attn
+from repro_torch.models.attention import AttnCfg
+from repro_torch.models.layers import (apply_embedding, apply_linear, apply_rmsnorm,
+                                       apply_swiglu, check_ported, embedding_logits,
+                                       init_embedding, init_linear, init_rmsnorm,
+                                       init_swiglu, rope_tables)
+
+
+def _require_dense(cfg: ModelCfg) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense only)")
+
+
+def attn_cfg(cfg: ModelCfg) -> AttnCfg:
+    return AttnCfg(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                   head_dim=cfg.hd, qkv_bias=cfg.qkv_bias, rope_base=cfg.rope_base)
+
+
+def init_lm(gen: torch.Generator, cfg: ModelCfg, *, device="cpu",
+            policy: Optional[TransPolicy] = None) -> dict:
+    """Random parameters from ``gen``. With a posit ``policy.weights`` every
+    linear is quantized as soon as it is drawn, so the peak memory is one
+    f32 linear above the codes (a full-size model never exists in f32)."""
+    _require_dense(cfg)
+    wfmt = policy.weights if policy is not None else None
+    acfg = attn_cfg(cfg)
+    params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, device=device)}
+    params["blocks"] = [
+        {"ln1": init_rmsnorm(cfg.d_model, device=device),
+         "attn": attn.init_attention(gen, acfg, device=device, wfmt=wfmt),
+         "ln2": init_rmsnorm(cfg.d_model, device=device),
+         "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device, wfmt=wfmt)}
+        for _ in range(cfg.n_layers)]
+    params["final_norm"] = init_rmsnorm(cfg.d_model, device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab, device=device,
+                                        wfmt=wfmt)
+    return params
+
+
+def logits_fn(params: dict, h: torch.Tensor, cfg: ModelCfg,
+              policy: TransPolicy) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return embedding_logits(params["embed"], h)
+    return apply_linear(params["lm_head"], h, policy).to(torch.float32)
+
+
+def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,
+               device="cpu") -> dict:
+    _require_dense(cfg)
+    return {
+        "kv": attn.init_kv_cache(B, S_max, attn_cfg(cfg), policy, device=device,
+                                 n_layers=cfg.n_layers),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        # per-row next-write positions (ragged continuous batching)
+        "lens": torch.zeros((B,), dtype=torch.int32, device=device),
+    }
+
+
+def _layer_cache(kv: dict, i: int) -> dict:
+    """Layer i's views into the stacked cache (writes land in the stack)."""
+    return {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+
+
+def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
+                policy: TransPolicy) -> tuple:
+    """One token for the whole batch. token_t: (B,) int -> logits (B, V).
+
+    Every row writes at its own position ``cache["lens"]`` and masks by its
+    layer's ``len``. The cache is updated in place and returned.
+    """
+    _require_dense(cfg)
+    check_ported(policy)
+    lens = cache["lens"]
+    acfg = attn_cfg(cfg)
+    x = apply_embedding(params["embed"], token_t[:, None])
+    rope = rope_tables(lens[:, None], acfg.head_dim, acfg.rope_base)
+    for i, p in enumerate(params["blocks"]):
+        h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
+        # the block residuals fuse into the wo and down projections' epilogues
+        x, _ = attn.decode_attention_step(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
+                                          lens, policy, rope=rope, residual=x)
+        h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = apply_swiglu(p["mlp"], h, policy, residual=x)
+    h = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_fn(params, h, cfg, policy)[:, 0]
+    cache["pos"] += 1
+    cache["lens"] = lens + 1
+    return logits, cache
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPolicy,
+            *, S_max: Optional[int] = None) -> tuple:
+    """Run the full prompt, build the cache, return last-position logits."""
+    _require_dense(cfg)
+    check_ported(policy)
+    B, S = tokens.shape
+    S_max = S_max or S
+    device = params["embed"]["table"].device
+    cache = init_cache(cfg, B, S_max, policy, device=device)
+    acfg = attn_cfg(cfg)
+    x = apply_embedding(params["embed"], tokens)
+    for i, p in enumerate(params["blocks"]):
+        h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
+        # the block residuals fuse into the wo and down projections' epilogues
+        x, _ = attn.prefill_attention(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
+                                      policy, residual=x)
+        h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
+        x = apply_swiglu(p["mlp"], h, policy, residual=x)
+    h = apply_rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    logits = logits_fn(params, h, cfg, policy)[:, 0]
+    cache["pos"].fill_(S)
+    cache["lens"].fill_(S)
+    return logits, cache

@@ -1,0 +1,186 @@
+"""Port GEMM parity: ``kernels.posit_gemm.ops.posit_gemm`` (CPU route = its
+plain version) and ``core.dot.posit_matmul_wx`` against the reference's
+Pallas ``posit_gemm`` (interpret=True) and its XLA ``posit_matmul_wx``.
+
+Tolerances, stated once:
+* float out: both sides sum K products that are exact in f32 (bf16 x bf16,
+  or f32 rounded once) in different orders, so
+  |port - ref| <= 4*K*2^-24*(|A|@|B| + |bias|) + 16*2^-24*(|ref| + |residual|);
+  the second term covers the epilogue's adds and the activation's last-ulp
+  differences between XLA and torch.
+* posit out: the f32 results may round to neighbouring codes: <= 1 posit ulp
+  in code space.
+"""
+import zlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import types as jtypes
+from repro.core.codec import posit_decode as jax_decode
+from repro.core.codec import posit_encode as jax_encode
+from repro.core.dot import posit_matmul_wx as jax_matmul_wx
+from repro.kernels.posit_gemm.posit_gemm import posit_gemm as jax_posit_gemm
+from repro_torch.core import types
+from repro_torch.core.dot import format_pair_plan, posit_matmul_wx
+from repro_torch.core.pcsr import OperandSlots
+from repro_torch.kernels.posit_gemm.ops import gemm, posit_gemm, split_plan
+
+U = 2.0 ** -24
+M, K, N = 5, 70, 45   # ragged against every tile size
+
+# (name, a_fmt, b_fmt, out_fmt) by format name; one row per format-table row
+ROWS = {
+    "p8xp8": ("p8_0", "p8_2", "f32"),
+    "p16xp16": ("p16_1", "p16_2", "f32"),
+    "bf16xp8": ("bf16", "p8_0", "f32"),
+    "f32xp8": ("f32", "p8_1", "f32"),
+    "f32xf32": ("f32", "f32", "f32"),
+    "p8out": ("p8_0", "p8_0", "p8_2"),
+    "p16out": ("p16_1", "p16_1", "p16_1"),
+}
+CASES = ([(row, act, True, True) for row in ROWS for act in ("silu", "gelu", "relu")]
+         + [(row, "none", False, False) for row in ROWS]
+         + [("bf16xp8", "none", True, False), ("bf16xp8", "none", False, True)])
+
+
+def _operand(fmt_name, shape, rng, scale):
+    """numpy operand in its storage dtype: posit codes or float values."""
+    x = (rng.normal(0, scale, shape)).astype(np.float32)
+    fmt = jtypes.get_format(fmt_name)
+    if isinstance(fmt, jtypes.PositFmt):
+        return np.asarray(jax_encode(jnp.asarray(x), fmt.nbits, fmt.es))
+    return np.asarray(jnp.asarray(x).astype(fmt.dtype))
+
+
+def _to_torch(a):
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _values(a, fmt_name):
+    fmt = jtypes.get_format(fmt_name)
+    if isinstance(fmt, jtypes.PositFmt):
+        return np.asarray(jax_decode(jnp.asarray(a), fmt.nbits, fmt.es), np.float64)
+    return np.asarray(a, np.float64)
+
+
+def _check(got, want, out_fmt_name, a_vals, b_vals, bias, res):
+    out_fmt = jtypes.get_format(out_fmt_name)
+    if isinstance(out_fmt, jtypes.PositFmt):
+        n = out_fmt.nbits
+        d = (got.astype(np.int64) - want.astype(np.int64)) & ((1 << n) - 1)
+        assert np.minimum(d, (1 << n) - d).max() <= 1
+        return
+    want = np.asarray(want, np.float64)
+    scale = np.abs(a_vals) @ np.abs(b_vals) + (0 if bias is None else np.abs(bias))
+    tol = 4 * K * U * scale + 16 * U * (np.abs(want) + (0 if res is None else np.abs(res)))
+    err = np.abs(np.asarray(got, np.float64) - want)
+    assert (err <= tol).all(), float((err / tol).max())
+
+
+@pytest.mark.parametrize("row,act,has_bias,has_res", CASES)
+def test_posit_gemm_matches_pallas(row, act, has_bias, has_res):
+    a_name, b_name, o_name = ROWS[row]
+    rng = np.random.default_rng(zlib.crc32(f"{row}/{act}".encode()))
+    a = _operand(a_name, (M, K), rng, 1.0)
+    b = _operand(b_name, (K, N), rng, K ** -0.5)
+    bias = rng.normal(0, 0.1, (N,)).astype(np.float32) if has_bias else None
+    res = rng.normal(0, 1.0, (M, N)).astype(np.float32) if has_res else None
+    jf = [jtypes.get_format(x) for x in (a_name, b_name, o_name)]
+    es = [getattr(f, "es", 0) for f in jf]
+    want = np.asarray(jax_posit_gemm(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(es, jnp.int32),
+        a_fmt=jf[0], b_fmt=jf[1], out_fmt=jf[2],
+        bias=None if bias is None else jnp.asarray(bias),
+        residual=None if res is None else jnp.asarray(res), activation=act,
+        block_m=8, block_n=128, block_k=128, interpret=True))
+    tf = [types.get_format(x) for x in (a_name, b_name, o_name)]
+    got = posit_gemm(_to_torch(a), _to_torch(b), es, a_fmt=tf[0], b_fmt=tf[1], out_fmt=tf[2],
+                     bias=None if bias is None else torch.from_numpy(bias),
+                     residual=None if res is None else torch.from_numpy(res),
+                     activation=act)
+    got = got.numpy()
+    assert got.shape == (M, N) and got.dtype == want.dtype
+    _check(got, want, o_name, _values(a, a_name), _values(b, b_name), bias, res)
+    # the slot-driven front door is the same function
+    slots = OperandSlots(rs1=tf[0], rs2=tf[1], rd=tf[2])
+    again = gemm(_to_torch(a), _to_torch(b), slots,
+                 bias=None if bias is None else torch.from_numpy(bias),
+                 residual=None if res is None else torch.from_numpy(res),
+                 activation=act).numpy()
+    np.testing.assert_array_equal(again, got)
+
+
+@pytest.mark.parametrize("w_name,cd", [("p8_0", "bf16"), ("p16_1", "f32"), ("p8_3", "f32")])
+@pytest.mark.parametrize("act", ["none", "silu"])
+def test_matmul_wx_matches_reference(w_name, cd, act):
+    """The weights-only linear path: x (batch, seq, K) float, W codes."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 1, (2, 3, K)).astype(np.float32)
+    w = _operand(w_name, (K, N), rng, K ** -0.5)
+    bias = rng.normal(0, 0.1, (N,)).astype(np.float32)
+    res = rng.normal(0, 1, (2, 3, N)).astype(np.float32)
+    jdt = jnp.bfloat16 if cd == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if cd == "bf16" else torch.float32
+    jw = jtypes.get_format(w_name)
+    want = np.asarray(jax_matmul_wx(jnp.asarray(x).astype(jdt), jnp.asarray(w), jw,
+                                    compute_dtype=jdt, out_dtype=jnp.float32,
+                                    bias=jnp.asarray(bias), activation=act,
+                                    residual=jnp.asarray(res)))
+    got = posit_matmul_wx(torch.from_numpy(x).to(tdt), torch.from_numpy(w),
+                          types.get_format(w_name), compute_dtype=tdt,
+                          out_dtype=torch.float32, bias=torch.from_numpy(bias),
+                          activation=act, residual=torch.from_numpy(res)).numpy()
+    assert got.shape == (2, 3, N)
+    xa = np.asarray(jnp.asarray(x).astype(jdt), np.float64).reshape(-1, K)
+    _check(got.reshape(-1, N), want.reshape(-1, N), "f32", xa, _values(w, w_name), bias,
+           res.reshape(-1, N))
+
+
+@pytest.mark.parametrize("out_name", ["p8_1", "p16_2"])
+def test_matmul_wx_posit_out(out_name):
+    rng = np.random.default_rng(3)
+    x = rng.normal(0, 1, (4, K)).astype(np.float32)
+    w = _operand("p16_1", (K, N), rng, K ** -0.5)
+    jo, to = jtypes.get_format(out_name), types.get_format(out_name)
+    want = np.asarray(jax_matmul_wx(jnp.asarray(x), jnp.asarray(w), jtypes.P16_1,
+                                    activation="gelu", out_fmt=jo))
+    got = posit_matmul_wx(torch.from_numpy(x), torch.from_numpy(w), types.P16_1,
+                          activation="gelu", out_fmt=to).numpy()
+    assert got.dtype == want.dtype
+    _check(got, want, out_name, None, None, None, None)
+
+
+def test_format_pair_plan_matches_reference():
+    from repro.core.dot import format_pair_plan as jax_plan
+    from repro.core.pcsr import OperandSlots as JaxSlots
+    names = ("p8_0", "p8_3", "p16_1", "f32", "bf16")
+    for a in names:
+        for b in names:
+            want = jax_plan(JaxSlots(rs1=jtypes.get_format(a), rs2=jtypes.get_format(b)))
+            got = format_pair_plan(types.get_format(a), types.get_format(b))
+            assert str(got.compute_dtype).endswith(want.compute_dtype_name), (a, b)
+            assert (got.decode_a, got.decode_b) == (want.decode_a, want.decode_b)
+
+
+def test_split_plan_is_row_count_independent_for_decode():
+    """A decode batch of 1..8 rows gets one K partition, so a row's sum order
+    does not depend on how many other rows share the batch."""
+    for Kd, Nd in ((5120, 5120), (5120, 1024), (13824, 5120), (5120, 152064)):
+        plans = {split_plan(m, Nd, Kd, 132) for m in range(1, 9)}
+        assert len(plans) == 1
+        splits, kps = plans.pop()
+        assert splits * kps >= Kd and (splits - 1) * kps < Kd
+
+
+def test_unported_variants_raise():
+    a = torch.zeros((2, 4), dtype=torch.uint8)
+    with pytest.raises(NotImplementedError):
+        gemm(a, a.T.contiguous(), OperandSlots.uniform(types.P8_0, dataflow="quire"))
+    with pytest.raises(ValueError):
+        posit_gemm(a, a.T.contiguous(), (0, 0, 0), a_fmt=types.P8_0, b_fmt=types.P8_0,
+                   out_fmt=types.F32, activation="tanh")

@@ -1,0 +1,95 @@
+"""Import hygiene and device defaults of the port.
+
+* No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports jax or
+  anything of the reference package ``repro``.
+* The entry points default to ``device="cuda"``; without CUDA such a call
+  raises instead of running on the CPU.
+* ``chip_smoke.py`` refuses to run without CUDA and prints no result.
+"""
+import ast
+import inspect
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.configs import get_arch
+from repro_torch.convert import params_from_jax
+from repro_torch.core.device import resolve_device
+from repro_torch.kernels.posit_codec import ops as codec_ops
+from repro_torch.launch import serve as serve_mod
+from repro_torch.models.registry import build_model
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            if _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_covers_the_package():
+    names = {p.name for p in PORT_FILES}
+    assert {"codec.py", "ops.py", "engine.py", "serve.py", "chip_smoke.py"} <= names
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (build_model, serve_mod.serve, params_from_jax, resolve_device):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
+def test_cuda_default_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    cfg = get_arch("qwen2.5-14b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_mod.serve("qwen2.5-14b", reduced=True, requests=1, prompt_len=4, gen=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"blocks": {}}, cfg)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    before = dict(kernels.LAUNCHES)
+    codes = codec_ops.encode(torch.randn(64), 0, nbits=8)
+    codec_ops.decode(codes, 0, nbits=8)
+    assert kernels.LAUNCHES == before
+
+
+def test_wrappers_refuse_mixed_devices():
+    meta = torch.empty(4, device="meta")
+    with pytest.raises(ValueError):
+        codec_ops.decode(meta.to(torch.uint8), 0, nbits=8)
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, shutil.copy(ROOT / "chip_smoke.py", tmp_path))):
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode != 0
+        for line in proc.stdout.splitlines():
+            with pytest.raises(json.JSONDecodeError):
+                json.loads(line)
