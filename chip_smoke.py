@@ -6,14 +6,25 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build the CUDA kernels from src/repro_torch/csrc (nvcc, all at once);
   2. the codec kernels against their plain versions, exhaustively, bit-exact;
   3. the posit GEMM kernel against its plain version at the serving shapes
-     of qwen2.5-14b;
-  4. the decode-attention kernel against its plain version;
-  5. the reduced qwen2.5-14b on the card against the same model on the CPU
-     (plain versions), then the main path: qwen2.5-14b at full width and
-     depth, random weights from a seed, P8_SERVE, 8 requests (prompt 64,
-     gen 16, 4 slots, greedy) through the continuous-batching engine, with
-     every kernel's launch count read around that run;
-  6. each kernel timed at its main-path shape beside its bound, its plain
+     of qwen2.5-14b; the quire GEMM kernel against its plain version, bit
+     for bit, at phi3-mini-3.8b's shapes, and against itself unsplit;
+  4. the decode-attention kernel against its plain version (qwen2.5-14b's
+     and phi3-mini-3.8b's head shapes); the softmax kernel against its plain
+     version (within 1 posit ulp);
+  5. the reduced qwen2.5-14b (P8_SERVE) and the reduced phi3-mini-3.8b
+     (p16 under the quire) on the card against the same models on the CPU
+     (plain versions). Then three paths, each with every kernel's launch
+     count set to 0 just before it and read just after:
+     - qwen2.5-14b at full width and depth, random weights from a seed,
+       P8_SERVE, 8 requests (prompt 64, gen 16, 4 slots, greedy) through the
+       continuous-batching engine;
+     - phi3-mini-3.8b at full width and depth under
+       weights=p16_1,kv=p16_1,dataflow=quire, 4 requests (prompt 32, gen 8,
+       4 slots, greedy): every linear through the quire GEMM;
+     - the posit softmax entry point (core.dot.posit_softmax) on the paper's
+       softmax rows and on phi3's logit rows;
+     and a profiled decode step of each served model;
+  6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call.
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -35,8 +46,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core.pcsr import P8_SERVE  # noqa: E402
-from repro_torch.core.types import BF16, F32, P8_0, P16_1  # noqa: E402
+from repro_torch.core.dot import posit_softmax  # noqa: E402
+from repro_torch.core.pcsr import P8_SERVE, parse_policy  # noqa: E402
+from repro_torch.core.types import BF16, F32, P8_0, P8_2, P16_1  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.posit_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref  # noqa: E402
@@ -44,16 +56,26 @@ from repro_torch.kernels.posit_codec import ops as codec_ops  # noqa: E402
 from repro_torch.kernels.posit_codec import ref as codec_ref  # noqa: E402
 from repro_torch.kernels.posit_gemm.ops import posit_gemm  # noqa: E402
 from repro_torch.kernels.posit_gemm.ref import posit_gemm_ref  # noqa: E402
+from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm  # noqa: E402
+from repro_torch.kernels.posit_quire_gemm.ref import posit_quire_gemm_ref  # noqa: E402
+from repro_torch.kernels.posit_softmax import ops as softmax_ops  # noqa: E402
+from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref  # noqa: E402
 from repro_torch.launch.engine import ContinuousBatchingEngine, poisson_requests  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# bf16 / f32: data sheet; int32: 132 SMs x 64 INT32 lanes x 1.98 GHz
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int32": 16.7e12}
+QUIRE_OPS_PER_PRODUCT = 4   # multiply, offset add, placing shift, one limb add
 U = 2.0 ** -24              # f32 unit roundoff
 DEV = torch.device("cuda")
 QWEN = get_arch("qwen2.5-14b")
+PHI3 = get_arch("phi3-mini-3.8b")
+QUIRE_SPEC = "weights=p16_1,kv=p16_1,dataflow=quire"
 GEMM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
+PHI3_KN = ((3072, 3072), (3072, 8192), (8192, 3072))
+SOFTMAX_SHAPES = ((1024, 8), (1024, 32), (1024, 128), (4, 32064))
 DETAILS: dict = {}
 
 
@@ -99,10 +121,20 @@ def bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).view(torch.int32)
 
 
+def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| over float results; a NaN on both sides (NaR)
+    counts as agreement, a NaN on one side as an infinite difference."""
+    g, w = got.to(torch.float32), want.to(torch.float32)
+    d = (g - w).abs()
+    d = torch.where(g.isnan() & w.isnan(), torch.zeros_like(d), d)
+    return float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() else 0.0
+
+
 # --------------------------------------------------------------- phase 2 ----
 
 def check_codec() -> dict:
     mismatches = 0
+    dec_err, enc_err = 0.0, 0
     for nbits, dt in ((8, torch.uint8), (16, torch.uint16)):
         codes = torch.arange(1 << nbits, device=DEV, dtype=torch.int32).to(dt)
         for es in range(4):
@@ -110,6 +142,7 @@ def check_codec() -> dict:
                 got = codec_ops.decode(codes, es, nbits=nbits, out_dtype=out)
                 want = codec_ref.decode_ref(codes, es, nbits=nbits, out_dtype=out)
                 mismatches += int((bits(got) != bits(want)).sum())
+                dec_err = max(dec_err, max_abs_diff(got, want))
     g = gen(1)
     sweep = [torch.randn(1 << 20, generator=g, device=DEV) * s for s in (1e-3, 1.0, 1e3)]
     raw = torch.randint(0, 1 << 31, (1 << 20,), generator=g, device=DEV, dtype=torch.int32)
@@ -124,9 +157,13 @@ def check_codec() -> dict:
             for ftz in (False, True):
                 got = codec_ops.encode(x, es, nbits=nbits, ftz=ftz)
                 want = codec_ref.encode_ref(x, es, nbits=nbits, ftz=ftz)
-                mismatches += int((got.to(torch.int32) != want.to(torch.int32)).sum())
+                d = (got.to(torch.int32) - want.to(torch.int32)).abs()
+                mismatches += int((d != 0).sum())
+                enc_err = max(enc_err, int(d.max()))
     assert mismatches == 0, f"codec kernels disagree with the plain codec on {mismatches} values"
-    return {"mismatches": mismatches, "encode_inputs": x.numel()}
+    # decode: |value difference|; encode: |code difference|
+    return {"mismatches": mismatches, "encode_inputs": x.numel(),
+            "decode_max_abs_err": dec_err, "encode_max_abs_err": enc_err}
 
 
 # --------------------------------------------------------------- phase 3 ----
@@ -220,6 +257,94 @@ def check_gemm() -> dict:
     return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio}
 
 
+def quire_cases():
+    """(name, M, K, N, a_fmt, b_fmt, out_fmt, bias, act, residual)."""
+    cases = []
+    for M in (1, 4, 32):
+        for K, N in PHI3_KN:
+            act = "silu" if (K, N) == (3072, 8192) else "none"   # gate (up: none)
+            # down, and 3072x3072 as wo at M = 4 (as wq, no epilogue, otherwise)
+            res = K == 8192 or (M == 4 and (K, N) == (3072, 3072))
+            cases.append((f"p16 M{M} {K}x{N}", M, K, N, P16_1, P16_1, F32, False, act, res))
+    cases.append(("p16 lm_head M4 3072x32064", 4, 3072, 32064, P16_1, P16_1, F32, False,
+                  "none", False))
+    cases.append(("p8 out M4 3072x3072", 4, 3072, 3072, P8_0, P8_0, P8_0, False, "none",
+                  False))
+    cases.append(("p8 out relu M4 3072x3072", 4, 3072, 3072, P8_2, P8_2, P8_0, True, "relu",
+                  False))
+    cases.append(("p16 x p8 M4 3072x8192", 4, 3072, 8192, P16_1, P8_0, F32, True, "none",
+                  True))
+    # 5..8 rows, a column count off every vector width, the gelu epilogue
+    cases.append(("p16 out M6 3072x1001", 6, 3072, 1001, P16_1, P16_1, P16_1, True, "gelu",
+                  True))
+    return cases
+
+
+def make_quire_inputs(M, K, N, a_fmt, b_fmt, bias, residual, seed=0):
+    """Activation and weight codes as the quire linear makes them, plus a
+    NaR in the last row of A (its outputs must read out NaR)."""
+    g = gen(seed)
+    a = codec_ops.encode(torch.randn((M, K), generator=g, device=DEV), a_fmt.es,
+                         nbits=a_fmt.nbits).to(torch.int32)
+    a[M - 1, K // 3] = 1 << (a_fmt.nbits - 1)
+    a = a.to(a_fmt.storage_dtype)
+    b = codec_ops.encode(torch.randn((K, N), generator=g, device=DEV) * K ** -0.5, b_fmt.es,
+                         nbits=b_fmt.nbits)
+    bi = torch.randn((N,), generator=g, device=DEV) * 0.1 if bias else None
+    r = torch.randn((M, N), generator=g, device=DEV) if residual else None
+    return a, b, bi, r
+
+
+def _as_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32) if t.dtype == torch.float32 else t.to(torch.int32)
+
+
+def check_quire_gemm() -> dict:
+    """Bit for bit against the plain version on two 128-column slices of N
+    (first and last, at full M and K: the plain version's int64 digit
+    tensors grow with M*N), and the whole result against the same kernel
+    with split-K forced to 1. Returns the largest difference measured over
+    the compared slices: |value| (posit outputs decoded) and code ulps."""
+    rows = []
+    worst_abs, worst_ulp = 0.0, 0
+    for name, M, K, N, a_fmt, b_fmt, out_fmt, bias, act, res in quire_cases():
+        a, b, bi, r = make_quire_inputs(M, K, N, a_fmt, b_fmt, bias, res)
+        es = (a_fmt.es, b_fmt.es, getattr(out_fmt, "es", 0))
+        kw = dict(a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt, activation=act)
+        got = posit_quire_gemm(a, b, es, bias=bi, residual=r, **kw)
+        one = posit_quire_gemm(a, b, es, bias=bi, residual=r, splits=1, **kw)
+        assert torch.equal(_as_bits(got), _as_bits(one)), f"quire {name}: split-K changed bits"
+        mismatches, case_abs, case_ulp = 0, 0.0, 0
+        for cols in (slice(0, min(N, 128)), slice(max(0, N - 128), N)):
+            want = posit_quire_gemm_ref(a, b[:, cols].contiguous(), es,
+                                        bias=None if bi is None else bi[cols],
+                                        residual=None if r is None else r[:, cols].contiguous(),
+                                        **kw)
+            part = got[:, cols]
+            mismatches += int((_as_bits(part) != _as_bits(want)).sum())
+            if out_fmt == F32:
+                case_abs = max(case_abs, max_abs_diff(part, want))
+            else:
+                n = out_fmt.nbits
+                d = (part.to(torch.int32) - want.to(torch.int32)) & ((1 << n) - 1)
+                case_ulp = max(case_ulp, int(torch.minimum(d, (1 << n) - d).max()))
+                case_abs = max(case_abs, max_abs_diff(
+                    codec_ref.decode_ref(part.contiguous(), out_fmt.es, nbits=n),
+                    codec_ref.decode_ref(want, out_fmt.es, nbits=n)))
+        assert mismatches == 0, f"quire {name}: {mismatches} outputs differ from the plain version"
+        nar = got[M - 1].isnan().all() if out_fmt == F32 else \
+            (got[M - 1].to(torch.int32) == 1 << (out_fmt.nbits - 1)).all()
+        assert bool(nar), f"quire {name}: a NaR operand must make its row NaR"
+        rows.append({"case": name, "mismatches": mismatches, "split_k_equal": True,
+                     "max_abs_err": case_abs, "max_code_ulps": case_ulp})
+        worst_abs, worst_ulp = max(worst_abs, case_abs), max(worst_ulp, case_ulp)
+        del a, b, bi, r, got, one
+    torch.cuda.empty_cache()
+    DETAILS["quire_checks"] = rows
+    return {"cases": len(rows), "mismatches": 0, "max_abs_err": worst_abs,
+            "max_code_ulps": worst_ulp}
+
+
 # --------------------------------------------------------------- phase 4 ----
 
 def attn_inputs(kv_bits, *, B=4, Hq=40, Hkv=8, d=128, S=512, lengths=(0, 1, 300, 512),
@@ -237,8 +362,11 @@ def attn_inputs(kv_bits, *, B=4, Hq=40, Hkv=8, d=128, S=512, lengths=(0, 1, 300,
 
 def check_attention() -> dict:
     worst = 0.0
-    for kv_bits in (8, 16, 0):
-        q, k, v, lens = attn_inputs(kv_bits)
+    # qwen2.5-14b's heads at each KV kind, then phi3-mini-3.8b's (d 96, 32/32, p16)
+    cases = [(kv_bits, {}) for kv_bits in (8, 16, 0)]
+    cases.append((16, dict(Hq=PHI3.n_heads, Hkv=PHI3.n_kv, d=PHI3.hd)))
+    for kv_bits, shape in cases:
+        q, k, v, lens = attn_inputs(kv_bits, **shape)
         got = attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=kv_bits)
         want = posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=kv_bits)
         vmax = float(codec_ref.decode_ref(v, 0, nbits=kv_bits).abs().max()) if kv_bits \
@@ -250,24 +378,47 @@ def check_attention() -> dict:
         assert err <= tol, f"attention kv_bits={kv_bits}: error {err} > {tol}"
         assert bool((got[0] == 0).all()), "a length-0 row must return exact zeros"
         worst = max(worst, err)
-    return {"max_abs_err": worst, "kv_bits": [8, 16, 0]}
+    return {"max_abs_err": worst, "cases": ["qwen p8", "qwen p16", "qwen f32", "phi3 p16 d96"]}
+
+
+def check_softmax() -> dict:
+    """Within 1 posit ulp (signed code space) of the plain version: the
+    paper's softmax rows and phi3's logit rows, p16_1, plus a p8 case."""
+    worst_ulp, worst_abs = 0, 0.0
+    for (R, C), nbits in [(shape, 16) for shape in SOFTMAX_SHAPES] + [((64, 300), 8)]:
+        codes = codec_ops.encode(torch.randn((R, C), generator=gen(C), device=DEV) * 3, 1,
+                                 nbits=nbits)
+        got = softmax_ops.softmax(codes, 1, nbits=nbits)
+        want = posit_softmax_ref(codes, 1, nbits=nbits)
+        half, full = 1 << (nbits - 1), 1 << nbits
+        sg, sw = got.to(torch.int64), want.to(torch.int64)
+        ulp = int((torch.where(sg >= half, sg - full, sg)
+                   - torch.where(sw >= half, sw - full, sw)).abs().max())
+        assert ulp <= 1, f"softmax ({R}, {C}) p{nbits}: {ulp} posit ulps apart"
+        err = (codec_ref.decode_ref(got, 1, nbits=nbits)
+               - codec_ref.decode_ref(want, 1, nbits=nbits)).abs().max()
+        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, float(err))
+    return {"max_code_ulps": worst_ulp, "max_abs_err": worst_abs}
 
 
 # --------------------------------------------------------------- phase 5 ----
 
-def check_small_model() -> dict:
-    """Reduced qwen2.5-14b: the card's kernels against the CPU's plain
-    versions, same seed-made weights, prefill + 4 greedy decode steps."""
-    cfg = QWEN.reduced()
+def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05) -> dict:
+    """A reduced model: the card's kernels against the CPU's plain versions,
+    same seed-made weights, prefill + 4 greedy decode steps. Bounds: P8_SERVE
+    rounds activations to bf16 and K/V to p8, where one flipped rounding
+    moves logits ~1e-2 (0.05); under the quire every linear is exact, but
+    f32 norms, attention and silu in another order can move a p16
+    activation or K/V code by one ulp (2^-13), ~1e-3 on a logit (2e-3)."""
+    cfg = arch.reduced()
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
-    params_cpu = cpu_model.init(0, P8_SERVE)
+    params_cpu = cpu_model.init(0, policy)
     params_gpu = _to(params_cpu, DEV)
     toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0),
                          dtype=torch.int32)
-    lc, cc = cpu_model.prefill(params_cpu, toks, P8_SERVE, S_max=24)
-    lg, cg = gpu_model.prefill(params_gpu, toks.to(DEV), P8_SERVE, S_max=24)
+    lc, cc = cpu_model.prefill(params_cpu, toks, policy, S_max=24)
+    lg, cg = gpu_model.prefill(params_gpu, toks.to(DEV), policy, S_max=24)
     worst, agree, clear = 0.0, 0, 0
-    bound = 0.05   # bf16 activations and p8 KV: one flipped rounding moves logits ~1e-2
     for _ in range(5):
         err = float((lg.cpu() - lc).abs().max())
         worst = max(worst, err)
@@ -279,9 +430,9 @@ def check_small_model() -> dict:
         agree += int(same.sum())
         clear += int(margin_clear.sum())
         tok = lc.argmax(-1).to(torch.int32)
-        lc, cc = cpu_model.decode_step(params_cpu, tok, cc, P8_SERVE)
-        lg, cg = gpu_model.decode_step(params_gpu, tok.to(DEV), cg, P8_SERVE)
-    return {"max_logit_err": worst, "bound": bound, "greedy_agree": agree,
+        lc, cc = cpu_model.decode_step(params_cpu, tok, cc, policy)
+        lg, cg = gpu_model.decode_step(params_gpu, tok.to(DEV), cg, policy)
+    return {"arch": cfg.name, "max_logit_err": worst, "bound": bound, "greedy_agree": agree,
             "margin_clear": clear}
 
 
@@ -293,6 +444,9 @@ def _to(tree, device):
     return tree.to(device)
 
 
+P8_PATH_KERNELS = ("posit_decode", "posit_encode", "posit_gemm", "posit_attention")
+
+
 def run_main_path() -> tuple[dict, dict]:
     events = []
     kernels.reset_launches()
@@ -300,8 +454,8 @@ def run_main_path() -> tuple[dict, dict]:
                    gen=16, seed=0, device="cuda", emit=events.append)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    for name in P8_PATH_KERNELS:
+        assert launches[name] > 0, f"kernel {name} was not launched on the main path"
     assert report["requests"] == 8, report["requests"]
     assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
     assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the main path"
@@ -310,17 +464,56 @@ def run_main_path() -> tuple[dict, dict]:
     return report, launches
 
 
-def profile_decode(steps: int = 3) -> dict:
+def run_quire_path() -> tuple[dict, dict]:
+    """phi3-mini-3.8b at full width and depth under the quire: every
+    posit-coded linear must leave the fused GEMM for the quire GEMM."""
+    events = []
+    kernels.reset_launches()
+    report = serve("phi3-mini-3.8b", policy=QUIRE_SPEC, max_slots=4, requests=4, prompt_len=32,
+                   gen=8, seed=0, device="cuda", emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in ("posit_quire_gemm", "posit_encode", "posit_attention"):
+        assert launches[name] > 0, f"kernel {name} was not launched on the quire path"
+    assert launches["posit_gemm"] == 0, "a posit-coded linear left the quire"
+    assert report["requests"] == 4, report["requests"]
+    assert all(n == 8 for n in report["completion_tokens"].values()), report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the quire path"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
+    DETAILS["quire_serve_events"] = events
+    return report, launches
+
+
+def run_softmax_path() -> tuple[dict, dict]:
+    """The softmax entry point (core.dot.posit_softmax, the paper's section
+    IV-C benchmark) on its rows and on phi3's logit rows, p16_1."""
+    kernels.reset_launches()
+    rows = []
+    for R, C in SOFTMAX_SHAPES:
+        codes = codec_ops.encode(torch.randn((R, C), generator=gen(R + C), device=DEV) * 3, 1,
+                                 nbits=16)
+        y = posit_softmax(codes, P16_1)
+        total = codec_ref.decode_ref(y, 1, nbits=16).sum(-1)
+        assert y.shape == (R, C) and bool(((total - 1).abs() < 0.05).all()), \
+            f"softmax ({R}, {C}): rows do not sum to 1"
+        rows.append({"R": R, "C": C, "max_row_sum_err": float((total - 1).abs().max())})
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert launches["posit_softmax"] == len(SOFTMAX_SHAPES), launches
+    return {"rows": rows}, launches
+
+
+def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 3) -> dict:
     """Where a decode step's time goes: the full model at 4 busy slots, a
     few steps under torch.profiler (device time by kernel name, and the
     device-busy share of the window), plus the step time without it."""
     from torch.profiler import ProfilerActivity, profile
 
-    model = build_model(QWEN)
-    params = model.init(0, P8_SERVE)
-    eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=4, S_max=80)
-    for r in poisson_requests(4, arrival_rate=0.0, prompt_lens=(64,), max_new_tokens=16,
-                              vocab=QWEN.vocab, seed=1):
+    model = build_model(arch)
+    params = model.init(0, policy)
+    eng = ContinuousBatchingEngine(model, params, policy, max_slots=4, S_max=prompt_len + 16)
+    for r in poisson_requests(4, arrival_rate=0.0, prompt_lens=(prompt_len,),
+                              max_new_tokens=16, vocab=arch.vocab, seed=1):
         eng.submit(r)
     eng.admit()
     eng.step()
@@ -356,6 +549,8 @@ def profile_decode(steps: int = 3) -> dict:
 # --------------------------------------------------------------- phase 6 ----
 
 def time_kernels(launches: dict, errs: dict) -> list:
+    """One row per kernel; ``launches`` maps each kernel to its count on the
+    path it belongs to."""
     rows = []
 
     def row(name, source, replaces, ms, plain_ms, nbytes, flops, kind, library_ms):
@@ -424,6 +619,49 @@ def time_kernels(launches: dict, errs: dict) -> list:
     q5, k5, v5, l5 = attn_inputs(8, lengths=(512, 512, 512, 512), seed=6)
     DETAILS["attention_S512_ms"] = time_ms(
         lambda: attn_ops.decode_attention(q5, k5, v5, l5, 0, kv_bits=8))
+    del q, k, v, kd, vd, q5, k5, v5
+    # quire GEMM: the decode-step gate/up of phi3 at 4 slots, p16 x p16 -> f32.
+    # No single PyTorch call sums exactly; the fused posit GEMM at the same
+    # shape (f32 accumulation) goes to the details as the price of exactness.
+    shapes = []
+    for K, N in PHI3_KN:
+        a, b, _, _ = make_quire_inputs(4, K, N, P16_1, P16_1, False, False, seed=7)
+        kw = dict(a_fmt=P16_1, b_fmt=P16_1, out_fmt=F32)
+        ms = time_ms(lambda: posit_quire_gemm(a, b, (1, 1, 1), **kw))
+        af = codec_ops.decode(a, 1, nbits=16)
+        fused = time_ms(lambda: posit_gemm(af, b, (0, 1, 0), a_fmt=F32, b_fmt=P16_1,
+                                           out_fmt=F32))
+        nbytes = a.numel() * 2 + b.numel() * 2 + 4 * N * 4
+        ops = QUIRE_OPS_PER_PRODUCT * 4 * K * N
+        shapes.append({"M": 4, "K": K, "N": N, "ms": ms, "fused_posit_gemm_ms": fused,
+                       "bound_ms": bound_ms(nbytes, ops, "int32")[0],
+                       "products_per_s": 4 * K * N / (ms * 1e-3)})
+        if (K, N) == (3072, 8192):
+            plain = time_ms(lambda: posit_quire_gemm_ref(a, b, (1, 1, 1), **kw), windows=3,
+                            calls=1)
+            shapes[-1]["plain_ms"] = plain
+            row("posit_quire_gemm", "src/repro_torch/csrc/posit_quire_gemm.cu",
+                "src/repro/kernels/posit_quire_gemm/posit_quire_gemm.py:186", ms, plain,
+                nbytes, ops, "int32", None)
+        del a, b, af
+    torch.cuda.empty_cache()
+    DETAILS["quire_decode_shapes"] = shapes
+    # softmax: phi3's logits at 4 slots, (4, 32064) p16_1; the yardstick is
+    # torch.softmax on the decoded f32 rows
+    R, C = SOFTMAX_SHAPES[-1]
+    codes = codec_ops.encode(torch.randn((R, C), generator=gen(8), device=DEV) * 3, 1, nbits=16)
+    xf = codec_ops.decode(codes, 1, nbits=16)
+    row("posit_softmax", "src/repro_torch/csrc/posit_softmax.cu",
+        "src/repro/kernels/posit_softmax/posit_softmax.py:41",
+        time_ms(lambda: softmax_ops.softmax(codes, 1, nbits=16)),
+        time_ms(lambda: posit_softmax_ref(codes, 1, nbits=16)),
+        2 * codes.numel() * 2, 6.0 * codes.numel(), "f32",
+        time_ms(lambda: torch.softmax(xf, dim=-1)))
+    paper = {}
+    for r, c in SOFTMAX_SHAPES[:3]:
+        rows_rc = codec_ops.encode(torch.randn((r, c), generator=gen(9), device=DEV), 1, nbits=16)
+        paper[f"{r}x{c}"] = time_ms(lambda: softmax_ops.softmax(rows_rc, 1, nbits=16))
+    DETAILS["softmax_paper_rows_ms"] = paper
     return rows
 
 
@@ -439,26 +677,50 @@ def main() -> int:
     seconds = build.build()
     log("build", seconds_each=seconds, seconds=time.perf_counter() - t0)
 
-    log("codec", **check_codec())
+    codec_res = check_codec()
+    log("codec", **codec_res)
     gemm_res = check_gemm()
     log("gemm", **gemm_res)
+    quire_res = check_quire_gemm()
+    log("quire_gemm", **quire_res)
     attn_res = check_attention()
     log("attention", **attn_res)
+    softmax_res = check_softmax()
+    log("softmax", **softmax_res)
     log("reduced_model", **check_small_model())
+    log("reduced_model_quire", **check_small_model(PHI3, parse_policy(QUIRE_SPEC), 2e-3))
 
+    keys = ("arch", "requests", "tokens", "decode_tok_per_s", "p50_token_ms", "p95_token_ms",
+            "p50_ttft_ms", "decode_steps", "setup_s", "makespan_s", "kv_bytes_per_token",
+            "kv_absmax")
     t0 = time.perf_counter()
     report, launches = run_main_path()
     log("main_path", seconds=time.perf_counter() - t0, launches=launches,
-        **{k: report[k] for k in ("arch", "requests", "tokens", "decode_tok_per_s",
-                                  "p50_token_ms", "p95_token_ms", "p50_ttft_ms", "decode_steps",
-                                  "setup_s", "makespan_s", "kv_bytes_per_token", "kv_absmax")})
+        **{k: report[k] for k in keys})
     DETAILS["serve_report"] = report
+    t0 = time.perf_counter()
+    q_report, q_launches = run_quire_path()
+    log("quire_path", seconds=time.perf_counter() - t0, launches=q_launches,
+        **{k: q_report[k] for k in keys})
+    DETAILS["quire_serve_report"] = q_report
+    sm_res, sm_launches = run_softmax_path()
+    log("softmax_path", launches=sm_launches, **sm_res)
     prof = profile_decode()
     log("profile", **{k: v for k, v in prof.items() if k != "top"})
     DETAILS["decode_profile"] = prof
+    q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32)
+    log("profile_quire", **{k: v for k, v in q_prof.items() if k != "top"})
+    DETAILS["quire_decode_profile"] = q_prof
 
-    errs = {"posit_encode": 0.0, "posit_decode": 0.0,
-            "posit_gemm": gemm_res["max_abs_err"], "posit_attention": attn_res["max_abs_err"]}
+    errs = {"posit_encode": codec_res["encode_max_abs_err"],
+            "posit_decode": codec_res["decode_max_abs_err"],
+            "posit_gemm": gemm_res["max_abs_err"], "posit_attention": attn_res["max_abs_err"],
+            "posit_quire_gemm": quire_res["max_abs_err"],
+            "posit_softmax": softmax_res["max_abs_err"]}
+    DETAILS["path_launches"] = {"p8_serve": launches, "quire": q_launches,
+                                "softmax": sm_launches}
+    launches = dict(launches, posit_quire_gemm=q_launches["posit_quire_gemm"],
+                    posit_softmax=sm_launches["posit_softmax"])
     rows = time_kernels(launches, errs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

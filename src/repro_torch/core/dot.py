@@ -1,7 +1,8 @@
-"""Posit GEMM front door: the epilogue contract, the format-pair plan and the
-weights-only ``posit_matmul_wx`` every linear layer calls.
+"""Posit GEMM front door: the epilogue contract, the format-pair plan, the
+weights-only ``posit_matmul_wx`` every fused linear calls, ``posit_dot``'s
+quire dataflow and ``posit_softmax``.
 
-``posit_matmul_wx`` goes through ``kernels.posit_gemm.ops.posit_gemm``: the
+Each goes through a kernel wrapper (``kernels.<name>.ops``): the
 hand-written kernel for CUDA tensors, its plain version for CPU tensors.
 """
 from __future__ import annotations
@@ -115,3 +116,39 @@ def posit_matmul_wx(
         bias=bias, residual=res, activation=activation,
         compute_dtype=compute_dtype)
     return y.reshape(*lead, N)
+
+
+def posit_dot(a: torch.Tensor, b: torch.Tensor, slots, *, es_b: Optional[int] = None,
+              bias: Optional[torch.Tensor] = None, activation: str = "none",
+              residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(M, K) @ (K, N) with per-operand pcsr formats and the fused epilogue.
+
+    ``slots.dataflow == "quire"`` accumulates exactly through the quire GEMM
+    kernel. rs1/rs2 must be posit (float inputs have no exact quire
+    representation); rd may be F32, read out by one RNE of the exact sum
+    (the layer-level contract: no accumulation rounding, no float matmul).
+    The fused and unfused dataflows of the reference's ``posit_dot`` are
+    reached in the port through ``posit_matmul_wx`` and
+    ``kernels.posit_gemm.ops.gemm`` instead.
+    """
+    if slots.dataflow != "quire":
+        raise NotImplementedError(
+            f"posit_dot(dataflow={slots.dataflow!r}) is not ported: use "
+            "posit_matmul_wx or kernels.posit_gemm.ops.gemm")
+    from repro_torch.kernels.posit_quire_gemm.ops import quire_gemm
+
+    return quire_gemm(a, b, slots, es_b=es_b, bias=bias, activation=activation,
+                      residual=residual)
+
+
+def posit_softmax(codes: torch.Tensor, fmt: PositFmt, *, es: Optional[int] = None,
+                  axis: int = -1) -> torch.Tensor:
+    """softmax over posit-stored logits, result re-encoded (paper §IV-C),
+    through the posit softmax kernel's front door."""
+    from repro_torch.kernels.posit_softmax.ops import softmax
+
+    x = codes.movedim(axis, -1)
+    shape = x.shape
+    y = softmax(x.reshape(-1, shape[-1]).contiguous(), fmt.es if es is None else es,
+                nbits=fmt.nbits)
+    return y.reshape(shape).movedim(-1, axis)

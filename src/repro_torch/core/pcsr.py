@@ -160,6 +160,18 @@ class TransPolicy:
         for role in ROLES:
             f = self.fmt_for(role)
             parts.append(f"{role}={f.name if f else '-'}")
+        if self.exact_collectives:
+            parts.append("exact_collectives")
+        if self.codec_impl != "auto":
+            parts.append(f"codec={self.codec_impl}")
+        if self.epilogue != "fused":
+            parts.append(f"epilogue={self.epilogue}")
+        if self.pack_weights:
+            parts.append("packed_weights")
+        if self.attn_impl != "auto":
+            parts.append(f"attn={self.attn_impl}")
+        if self.dataflow != "fused":
+            parts.append(f"dataflow={self.dataflow}")
         return " ".join(parts)
 
 

@@ -153,4 +153,25 @@ __device__ __forceinline__ float load_elem(const void* p, long long i, int es,
   }
 }
 
+// Epilogue activations (the order of ACTIVATIONS in core/dot.py). gelu is
+// the tanh form; silu and gelu follow PyTorch's formulas, so a kernel's f32
+// epilogue matches the plain version's on the card.
+enum Act : int { kActNone = 0, kActGelu = 1, kActSilu = 2, kActRelu = 3 };
+
+__device__ __forceinline__ float activate(float y, int act) {
+  switch (act) {
+    case kActGelu: {
+      const float c = 0.7978845608028654f;  // sqrt(2/pi): the tanh form
+      const float y3 = y * y * y;
+      return 0.5f * y * (1.0f + tanhf(c * (y + 0.044715f * y3)));
+    }
+    case kActSilu:
+      return y / (1.0f + expf(-y));
+    case kActRelu:
+      return y != y ? y : fmaxf(y, 0.0f);
+    default:
+      return y;
+  }
+}
+
 }  // namespace posit

@@ -43,8 +43,6 @@ using posit::kF32;
 using posit::kP16;
 using posit::kP8;
 
-enum Act : int { kNone = 0, kGelu = 1, kSilu = 2, kRelu = 3 };
-
 struct GemmArgs {
   const void* a;
   const void* b;
@@ -61,24 +59,9 @@ struct GemmArgs {
   int k_per_split;
 };
 
-__device__ __forceinline__ float activate(float y, int act) {
-  switch (act) {
-    case kGelu: {
-      const float c = 0.7978845608028654f;  // sqrt(2/pi): the tanh form
-      return 0.5f * y * (1.0f + tanhf(c * (y + 0.044715f * y * y * y)));
-    }
-    case kSilu:
-      return y / (1.0f + expf(-y));
-    case kRelu:
-      return y != y ? y : fmaxf(y, 0.0f);
-    default:
-      return y;
-  }
-}
-
 __device__ __forceinline__ void emit(const GemmArgs& g, long long idx, int n, float y) {
   if (g.bias != nullptr) y += g.bias[n];
-  y = activate(y, g.act);
+  y = posit::activate(y, g.act);
   if (g.residual != nullptr) y += g.residual[idx];
   switch (g.out_kind) {
     case kF32:
@@ -358,7 +341,7 @@ int posit_gemm_launch(const void* a, const void* b, void* out, const float* bias
   if (M <= 0 || N <= 0) return 0;
   if (splits < 1 || k_per_split < 1 || (splits > 1 && partial == nullptr) ||
       static_cast<long long>(splits) * k_per_split < K || out_kind < kF32 || out_kind > kP16 ||
-      act < kNone || act > kRelu)
+      act < posit::kActNone || act > posit::kActRelu)
     return static_cast<int>(cudaErrorInvalidValue);
   auto clamp_es = [](int es) { return es < 0 ? 0 : (es > 3 ? 3 : es); };
   GemmArgs g{a,     b,          out,   bias,          residual,  partial,

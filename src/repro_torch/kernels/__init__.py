@@ -14,6 +14,8 @@ LAUNCHES: dict[str, int] = {
     "posit_encode": 0,
     "posit_gemm": 0,
     "posit_attention": 0,
+    "posit_quire_gemm": 0,
+    "posit_softmax": 0,
 }
 
 

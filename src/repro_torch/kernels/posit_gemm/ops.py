@@ -125,10 +125,16 @@ def gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
          es_a: Optional[int] = None, es_b: Optional[int] = None,
          es_out: Optional[int] = None, bias=None, activation: str = "none",
          residual=None) -> torch.Tensor:
-    """O = epilogue(decode(A) @ decode(B)) -> encode, per the pcsr slots."""
-    if slots.dataflow == "quire" or slots.rs2_packed:
-        raise NotImplementedError(
-            "the quire dataflow and packed-p8 weights are not ported yet")
+    """O = epilogue(decode(A) @ decode(B)) -> encode, per the pcsr slots.
+    A pcsr with ``dataflow="quire"`` routes to the exact-accumulation kernel
+    (``kernels.posit_quire_gemm``)."""
+    if slots.rs2_packed:
+        raise NotImplementedError("packed-p8 weights are not ported yet")
+    if slots.dataflow == "quire":
+        from repro_torch.kernels.posit_quire_gemm.ops import quire_gemm
+
+        return quire_gemm(a, b, slots, es_a=es_a, es_b=es_b, es_out=es_out, bias=bias,
+                          activation=activation, residual=residual)
 
     def _es(x, fmt):
         if x is not None:

@@ -5,9 +5,10 @@ stored weights appear as ``{"w_codes": uint8/uint16 (K, N), "b": ...}`` after
 ``quantize_params``; float weights as ``{"w": (K, N)}``. The TransPolicy says
 how to read them.
 
-Every linear goes through the posit GEMM kernel wrapper
-(``kernels.posit_gemm.ops.posit_gemm``): on CUDA tensors that is the
-hand-written kernel, on CPU tensors its plain version.
+Every linear goes through a GEMM kernel wrapper: the posit GEMM
+(``kernels.posit_gemm.ops.posit_gemm``), or under ``dataflow="quire"`` for
+posit-coded weights the quire GEMM (``kernels.posit_quire_gemm``). On CUDA
+tensors that is the hand-written kernel, on CPU tensors its plain version.
 """
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dot import float_fmt, posit_matmul_wx
-from repro_torch.core.pcsr import TransPolicy
+from repro_torch.core.dot import float_fmt, posit_dot, posit_matmul_wx
+from repro_torch.core.pcsr import OperandSlots, TransPolicy
 from repro_torch.core.types import F32, PositFmt
 from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.kernels.posit_gemm.ops import posit_gemm
@@ -28,8 +29,6 @@ def compute_dtype(policy: TransPolicy) -> torch.dtype:
 
 def check_ported(policy: TransPolicy) -> None:
     """Raise on policy knobs whose code paths are not ported yet."""
-    if policy.dataflow != "fused":
-        raise NotImplementedError(f"dataflow={policy.dataflow!r} (the quire) is not ported")
     if policy.pack_weights:
         raise NotImplementedError("packed-p8 weights are not ported")
     if policy.codec_impl == "lut":
@@ -100,6 +99,9 @@ def _linear_resolved(p: dict, x: torch.Tensor, policy: TransPolicy, es, *,
     if "w_codes" in p:
         fmt = policy.weights
         assert fmt is not None, "posit-coded params need policy.weights"
+        if policy.dataflow == "quire":
+            return _quire_linear(p, x, policy, fmt, es, activation=activation,
+                                 residual=residual)
         return posit_matmul_wx(x, p["w_codes"], fmt, es=es, compute_dtype=cd,
                                bias=p.get("b"), activation=activation,
                                residual=residual, out_dtype=x.dtype)
@@ -112,6 +114,30 @@ def _linear_resolved(p: dict, x: torch.Tensor, policy: TransPolicy, es, *,
                    bias=p.get("b"), activation=activation,
                    residual=None if residual is None else residual.reshape(-1, N).contiguous())
     return y.reshape(*lead, N).to(x.dtype)
+
+
+def _quire_linear(p: dict, x: torch.Tensor, policy: TransPolicy, fmt: PositFmt, es, *,
+                  activation: str, residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """dataflow="quire" lowering of a posit-coded linear.
+
+    Activations encode once into ``policy.activations`` (the weight format
+    when unset) through the encode kernel; every product lands exactly in a
+    quire, and the single terminal rounding reads out into f32 for the fused
+    bias/activation/residual epilogue: no float matmul anywhere.
+    """
+    afmt = policy.activations if policy.activations is not None else fmt
+    slots = OperandSlots(rs1=afmt, rs2=fmt, rd=F32, dataflow="quire",
+                         codec_impl=policy.codec_impl)
+    K = x.shape[-1]
+    N = p["w_codes"].shape[-1]
+    res2 = None
+    if residual is not None:
+        res2 = residual.expand(*x.shape[:-1], N).reshape(-1, N).to(torch.float32).contiguous()
+    a_codes = codec_ops.encode(x.reshape(-1, K).to(torch.float32).contiguous(), afmt.es,
+                               nbits=afmt.nbits)
+    y = posit_dot(a_codes, p["w_codes"], slots, es_b=es, bias=p.get("b"),
+                  activation=activation, residual=res2)
+    return y.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
 def _walk_linears(tree, path=""):

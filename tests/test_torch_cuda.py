@@ -11,14 +11,18 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_arch
-from repro_torch.core.pcsr import P8_SERVE
-from repro_torch.core.types import BF16, F32, P8_0, P16_1
+from repro_torch.core.pcsr import P8_SERVE, parse_policy
+from repro_torch.core.types import BF16, F32, P8_0, P8_3, P16_1
 from repro_torch.kernels.posit_attention import ops as attn_ops
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref
 from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.kernels.posit_codec import ref as codec_ref
 from repro_torch.kernels.posit_gemm.ops import posit_gemm
 from repro_torch.kernels.posit_gemm.ref import posit_gemm_ref
+from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm
+from repro_torch.kernels.posit_quire_gemm.ref import posit_quire_gemm_ref
+from repro_torch.kernels.posit_softmax.ops import softmax
+from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref
 from repro_torch.launch.engine import ContinuousBatchingEngine, poisson_requests
 from repro_torch.models.registry import build_model
 
@@ -71,17 +75,88 @@ def test_gemm_kernel_matches_plain(dev, M, b_fmt, a_dtype):
     assert ((got - want).abs() <= tol).all()
 
 
-def test_attention_kernel_matches_plain(dev):
+@pytest.mark.parametrize("Hq,Hkv,d,kv_bits", [(10, 2, 64, 8), (32, 32, 96, 16)])
+def test_attention_kernel_matches_plain(dev, Hq, Hkv, d, kv_bits):
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((4, 10, 64), generator=g, device=dev)
-    k = codec_ops.encode(torch.randn((4, 2, 100, 64), generator=g, device=dev), 0, nbits=8)
-    v = codec_ops.encode(torch.randn((4, 2, 100, 64), generator=g, device=dev), 0, nbits=8)
+    q = torch.randn((4, Hq, d), generator=g, device=dev)
+    k = codec_ops.encode(torch.randn((4, Hkv, 100, d), generator=g, device=dev), 0,
+                         nbits=kv_bits)
+    v = codec_ops.encode(torch.randn((4, Hkv, 100, d), generator=g, device=dev), 0,
+                         nbits=kv_bits)
     lens = torch.tensor([0, 1, 33, 100], dtype=torch.int32, device=dev)
-    got = attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=8)
-    want = posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=8)
-    vmax = float(codec_ref.decode_ref(v, 0, nbits=8).abs().max())
-    assert float((got - want).abs().max()) <= 8 * (64 + 200) * U * vmax
+    got = attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=kv_bits)
+    want = posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=kv_bits)
+    vmax = float(codec_ref.decode_ref(v, 0, nbits=kv_bits).abs().max())
+    assert float((got - want).abs().max()) <= 8 * (d + 200) * U * vmax
     assert bool((got[0] == 0).all())
+
+
+def _quire_operands(g, dev, M, K, N, a_fmt, b_fmt):
+    """Codes of normal values with zeros, one NaR in A and a block of
+    +-maxpos x -+maxpos products (the quire's widest digits)."""
+    a = codec_ops.encode(torch.randn((M, K), generator=g, device=dev), a_fmt.es,
+                         nbits=a_fmt.nbits).to(torch.int32)
+    b = codec_ops.encode(torch.randn((K, N), generator=g, device=dev) * K ** -0.5, b_fmt.es,
+                         nbits=b_fmt.nbits).to(torch.int32)
+    a[:, ::7] = 0
+    a[M - 1, K // 2] = 1 << (a_fmt.nbits - 1)
+    a[0, :16] = (1 << (a_fmt.nbits - 1)) - 1
+    b[:16, 0] = (1 << b_fmt.nbits) - ((1 << (b_fmt.nbits - 1)) - 1)
+    return a.to(a_fmt.storage_dtype), b.to(b_fmt.storage_dtype)
+
+
+@pytest.mark.parametrize("M", [1, 4, 13])
+@pytest.mark.parametrize("a_fmt,b_fmt,out_fmt,act", [
+    (P16_1, P16_1, F32, "silu"), (P16_1, P16_1, F32, "none"), (P8_3, P8_3, P8_3, "none"),
+    (P16_1, P8_0, P16_1, "relu"), (P8_0, P16_1, F32, "gelu")])
+def test_quire_gemm_kernel_bit_exact(dev, M, a_fmt, b_fmt, out_fmt, act):
+    K, N = 1000, 301                      # off every k tile and column block
+    g = torch.Generator(device=dev).manual_seed(M)
+    a, b = _quire_operands(g, dev, M, K, N, a_fmt, b_fmt)
+    epi = act != "none"
+    bias = torch.randn((N,), generator=g, device=dev) if epi else None
+    res = torch.randn((M, N), generator=g, device=dev) if epi else None
+    es = (a_fmt.es, b_fmt.es, getattr(out_fmt, "es", 0))
+    kw = dict(a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt, bias=bias, residual=res,
+              activation=act)
+    before = kernels.LAUNCHES["posit_quire_gemm"]
+    got = posit_quire_gemm(a, b, es, **kw)
+    assert kernels.LAUNCHES["posit_quire_gemm"] == before + 1
+    want = posit_quire_gemm_ref(a, b, es, **kw)
+    one = posit_quire_gemm(a, b, es, splits=1, **kw)
+    if out_fmt == F32:
+        got, want, one = (t.view(torch.int32) for t in (got, want, one))
+    assert torch.equal(got, want)
+    assert torch.equal(one, got)
+
+
+def test_quire_gemm_kernel_normalises_past_max_deferred(dev):
+    """K = 20000 in one split: the kernel normalises twice on the way."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    a, b = _quire_operands(g, dev, 2, 20000, 40, P16_1, P16_1)
+    kw = dict(a_fmt=P16_1, b_fmt=P16_1, out_fmt=P16_1)
+    want = posit_quire_gemm_ref(a, b, (1, 1, 1), **kw)
+    assert torch.equal(posit_quire_gemm(a, b, (1, 1, 1), splits=1, **kw), want)
+    assert torch.equal(posit_quire_gemm(a, b, (1, 1, 1), **kw), want)
+
+
+@pytest.mark.parametrize("R,C,nbits", [(1024, 8, 16), (64, 300, 8), (4, 32064, 16)])
+def test_softmax_kernel_within_one_ulp(dev, R, C, nbits):
+    g = torch.Generator(device=dev).manual_seed(C)
+    codes = codec_ops.encode(torch.randn((R, C), generator=g, device=dev) * 3, 1,
+                             nbits=nbits).to(torch.int32)
+    codes[0, 1] = 1 << (nbits - 1)
+    codes = codes.to(torch.uint8 if nbits == 8 else torch.uint16)
+    before = kernels.LAUNCHES["posit_softmax"]
+    got = softmax(codes, 1, nbits=nbits)
+    assert kernels.LAUNCHES["posit_softmax"] == before + 1
+    want = posit_softmax_ref(codes, 1, nbits=nbits)
+    half, full = 1 << (nbits - 1), 1 << nbits
+    sg, sw = got.to(torch.int64), want.to(torch.int64)
+    sg = torch.where(sg >= half, sg - full, sg)
+    sw = torch.where(sw >= half, sw - full, sw)
+    assert int((sg - sw).abs().max()) <= 1
+    assert bool((got[0] == half).all())
 
 
 def test_reduced_engine_on_card(dev):
@@ -95,3 +170,17 @@ def test_reduced_engine_on_card(dev):
     assert len(done) == 3 and all(len(c.tokens) == 4 for c in done)
     assert kernels.LAUNCHES["posit_gemm"] > 0 and kernels.LAUNCHES["posit_attention"] > 0
     assert kernels.LAUNCHES["posit_encode"] > 0
+
+
+def test_reduced_quire_engine_on_card(dev):
+    cfg = get_arch("phi3-mini-3.8b").reduced()
+    pol = parse_policy("weights=p16_1,kv=p16_1,dataflow=quire")
+    model = build_model(cfg)
+    params = model.init(0, pol)
+    eng = ContinuousBatchingEngine(model, params, pol, max_slots=2, S_max=20)
+    kernels.reset_launches()
+    done = eng.run(poisson_requests(3, arrival_rate=0.0, prompt_lens=(8,),
+                                    max_new_tokens=4, vocab=cfg.vocab))
+    assert len(done) == 3 and all(len(c.tokens) == 4 for c in done)
+    assert kernels.LAUNCHES["posit_quire_gemm"] > 0 and kernels.LAUNCHES["posit_gemm"] == 0
+    assert kernels.LAUNCHES["posit_attention"] > 0 and kernels.LAUNCHES["posit_encode"] > 0

@@ -180,7 +180,7 @@ def test_split_plan_is_row_count_independent_for_decode():
 def test_unported_variants_raise():
     a = torch.zeros((2, 4), dtype=torch.uint8)
     with pytest.raises(NotImplementedError):
-        gemm(a, a.T.contiguous(), OperandSlots.uniform(types.P8_0, dataflow="quire"))
+        gemm(a, a.T.contiguous(), OperandSlots(rs1=types.P8_0, rs2=types.P8_0, rs2_packed=True))
     with pytest.raises(ValueError):
         posit_gemm(a, a.T.contiguous(), (0, 0, 0), a_fmt=types.P8_0, b_fmt=types.P8_0,
                    out_fmt=types.F32, activation="tanh")

@@ -21,7 +21,10 @@ from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.core.device import resolve_device
+from repro_torch.core.types import P8_0
 from repro_torch.kernels.posit_codec import ops as codec_ops
+from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm
+from repro_torch.kernels.posit_softmax import ops as softmax_ops
 from repro_torch.launch import serve as serve_mod
 from repro_torch.models.registry import build_model
 
@@ -49,7 +52,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
-    assert {"codec.py", "ops.py", "engine.py", "serve.py", "chip_smoke.py"} <= names
+    assert {"codec.py", "quire.py", "ops.py", "engine.py", "serve.py", "chip_smoke.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for kernel in ("posit_quire_gemm", "posit_softmax"):
+        for mod in ("__init__.py", "ops.py", "ref.py"):
+            assert f"src/repro_torch/kernels/{kernel}/{mod}" in rel
 
 
 def test_entry_points_default_to_cuda():
@@ -73,7 +80,12 @@ def test_cpu_tensors_take_the_plain_version():
     before = dict(kernels.LAUNCHES)
     codes = codec_ops.encode(torch.randn(64), 0, nbits=8)
     codec_ops.decode(codes, 0, nbits=8)
+    w = codes.reshape(8, 8).contiguous()
+    posit_quire_gemm(w, w, (0, 0, 0), a_fmt=P8_0, b_fmt=P8_0, out_fmt=P8_0)
+    softmax_ops.softmax(w, 0, nbits=8)
     assert kernels.LAUNCHES == before
+    assert set(kernels.LAUNCHES) == {"posit_decode", "posit_encode", "posit_gemm",
+                                     "posit_attention", "posit_quire_gemm", "posit_softmax"}
 
 
 def test_wrappers_refuse_mixed_devices():

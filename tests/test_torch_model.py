@@ -123,8 +123,7 @@ def test_unported_policy_knobs_raise():
     model = build_model(cfg, device="cpu")
     params = model.init(0, pcsr.P8_SERVE)
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    for knob in (dict(dataflow="quire"), dict(codec_impl="lut"), dict(attn_impl="xla"),
-                 dict(epilogue="chained")):
+    for knob in (dict(codec_impl="lut"), dict(attn_impl="xla"), dict(epilogue="chained")):
         pol = dataclass_replace(pcsr.P8_SERVE, **knob)
         with pytest.raises(NotImplementedError):
             model.prefill(params, tokens, pol)
