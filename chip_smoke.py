@@ -6,11 +6,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. build the CUDA kernels from src/repro_torch/csrc (nvcc, all at once);
   2. the codec kernels against their plain versions, exhaustively, bit-exact;
   3. the posit GEMM kernel against its plain version at the serving shapes
-     of qwen2.5-14b; the quire GEMM kernel against its plain version, bit
-     for bit, at phi3-mini-3.8b's shapes, and against itself unsplit;
+     of qwen2.5-14b (decode and prefill), ragged shapes, p8 at es 0-3, bf16
+     weights and p16 weights (the f32-FMA kernels, M = 4 and 64); its
+     decode rows bit for bit the same at M = 1, 4 and 8;
+     the quire GEMM kernel against its plain version, bit for bit, at
+     phi3-mini-3.8b's shapes, and against itself unsplit;
   4. the decode-attention kernel against its plain version (qwen2.5-14b's
      and phi3-mini-3.8b's head shapes); the softmax kernel against its plain
-     version (within 1 posit ulp);
+     version (within 1 posit ulp), up to qwen's vocabulary, with a NaR row;
   5. the reduced qwen2.5-14b (P8_SERVE) and the reduced phi3-mini-3.8b
      (p16 under the quire) on the card against the same models on the CPU
      (plain versions). Then three paths, each with every kernel's launch
@@ -23,12 +26,16 @@ Phases, in order; any failure raises and the script exits non-zero:
        4 slots, greedy): every linear through the quire GEMM;
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
-     and a profiled decode step of each served model;
+     and a profiled decode step of each served model (the P8_SERVE step
+     must run no split-K epilogue kernel);
   6. each kernel timed at its path's shape beside its bound, its plain
-     version and, where one exists, a single PyTorch call.
+     version and, where one exists, a single PyTorch call; the GEMM also at
+     every decode and prefill (M = 64) shape of qwen2.5-14b.
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
-Details go to chiprun_out/chip_smoke_details.json.
+Details go to chiprun_out/chip_smoke_details.json. Every time is device
+time from torch.profiler (``time_ms``). kernel_timings.py reuses phase 6's
+GEMM and softmax timings to compare two checkouts on one card.
 """
 from __future__ import annotations
 
@@ -48,7 +55,8 @@ from repro_torch import kernels  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.dot import posit_softmax  # noqa: E402
 from repro_torch.core.pcsr import P8_SERVE, parse_policy  # noqa: E402
-from repro_torch.core.types import BF16, F32, P8_0, P8_2, P16_1  # noqa: E402
+from repro_torch.core.types import (BF16, F32, P8_0, P8_1, P8_2, P8_3, P16_1,  # noqa: E402
+                                    PositFmt)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.posit_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref  # noqa: E402
@@ -76,6 +84,7 @@ QUIRE_SPEC = "weights=p16_1,kv=p16_1,dataflow=quire"
 GEMM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
 PHI3_KN = ((3072, 3072), (3072, 8192), (8192, 3072))
 SOFTMAX_SHAPES = ((1024, 8), (1024, 32), (1024, 128), (4, 32064))
+QWEN_LOGITS = (4, 152064)
 DETAILS: dict = {}
 
 
@@ -94,20 +103,31 @@ def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
     torch.profiler over ``calls`` back-to-back calls, median over
     ``windows``, after a warm-up call. CUDA events around the calls would
     time this host's dispatch instead: it is slower than most of these
-    kernels, so the card idles between them."""
+    kernels, so the card idles between them. Now and then the profiler
+    records no device activity in a window (seen for library calls); such a
+    window is left out and counted in DETAILS["profiler_empty_windows"], and
+    another is taken, up to ``4 * windows`` in all. If none recorded any
+    device time, it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     per_call = []
-    for _ in range(windows):
+    for _ in range(4 * windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if not e.key.startswith("aten::"))
-        per_call.append(us / calls / 1e3)
+        if us > 0:
+            per_call.append(us / calls / 1e3)
+            if len(per_call) == windows:
+                break
+        else:
+            DETAILS["profiler_empty_windows"] = DETAILS.get("profiler_empty_windows", 0) + 1
+    if not per_call:
+        raise RuntimeError(f"torch.profiler recorded no device time in {4 * windows} windows")
     return statistics.median(per_call)
 
 
@@ -179,24 +199,76 @@ def gemm_cases():
             # as the model calls it: f32 activations, rounded to bf16 in the kernel
             cases.append((f"p8 M{M} {K}x{N}", M, K, N, P8_0, torch.float32, F32,
                           bias, act, res))
-    cases.append(("p16 f32 M4 5120x5120", 4, 5120, 5120, P16_1, torch.float32, F32,
-                  True, "gelu", True))
+    # p16 weights compute in f32: the decode kernel, and at M > 8 the 64 x 64
+    # FMA tile, each with its split-K epilogue kernel
+    for M in (4, 64):
+        cases.append((f"p16 f32 M{M} 5120x5120", M, 5120, 5120, P16_1, torch.float32, F32,
+                      True, "gelu", True))
     cases.append(("p8 out M4 5120x1024", 4, 5120, 1024, P8_0, torch.bfloat16, P8_0,
                   True, "relu", False))
     # 5..8 rows and a column count off every vector width: the scalar edge
     cases.append(("p8 M6 5120x1001", 6, 5120, 1001, P8_0, torch.float32, F32,
                   True, "silu", True))
+    # just past the decode tile, and a prefill tile, at ragged K and N, p8 at
+    # es 1..3; bf16 weights on the tensor cores; p8 activations and out
+    cases.append(("p8_1 M9 999x1001", 9, 999, 1001, P8_1, torch.float32, F32,
+                  True, "gelu", True))
+    cases.append(("p8_2 M64 1030x1000", 64, 1030, 1000, P8_2, torch.float32, F32,
+                  True, "silu", True))
+    cases.append(("p8_3 M9 5120x5120", 9, 5120, 5120, P8_3, torch.bfloat16, F32,
+                  False, "relu", True))
+    cases.append(("p8_2 M4 5120x13824", 4, 5120, 13824, P8_2, torch.float32, F32,
+                  False, "none", False))
+    cases.append(("p8_3 M64 13824x5120", 64, 13824, 5120, P8_3, torch.float32, F32,
+                  False, "none", True))
+    cases.append(("bf16 M4 5120x1024", 4, 5120, 1024, BF16, torch.float32, F32,
+                  True, "none", False))
+    cases.append(("bf16 M64 777x1001", 64, 777, 1001, BF16, torch.bfloat16, F32,
+                  True, "silu", True))
+    cases.append(("p8 x p8 out M64 5120x1024", 64, 5120, 1024, P8_0, P8_0, P8_0,
+                  True, "none", False))
     return cases
 
 
 def make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, residual, seed=0):
+    """a_dtype: a float dtype, or a p8 format for posit-coded activations."""
     g = gen(seed)
-    a = torch.randn((M, K), generator=g, device=DEV).to(a_dtype)
-    b = codec_ops.encode(torch.randn((K, N), generator=g, device=DEV) * K ** -0.5,
-                         b_fmt.es, nbits=b_fmt.nbits)
+    a = torch.randn((M, K), generator=g, device=DEV)
+    a = (codec_ops.encode(a, a_dtype.es, nbits=8) if isinstance(a_dtype, PositFmt)
+         else a.to(a_dtype))
+    w = torch.randn((K, N), generator=g, device=DEV) * K ** -0.5
+    b = (w.to(torch.bfloat16) if b_fmt == BF16
+         else codec_ops.encode(w, b_fmt.es, nbits=b_fmt.nbits))
     bi = torch.randn((N,), generator=g, device=DEV) * 0.1 if bias else None
     r = torch.randn((M, N), generator=g, device=DEV) if residual else None
     return a, b, bi, r
+
+
+def operand_values(x: torch.Tensor, fmt) -> torch.Tensor:
+    """A GEMM operand as f32 values: posit codes decoded, floats widened."""
+    if isinstance(fmt, PositFmt):
+        return codec_ref.decode_ref(x, fmt.es, nbits=fmt.nbits)
+    return x.to(torch.float32)
+
+
+def check_gemm_batch_invariance() -> dict:
+    """The decode path as the model calls it (f32 activations, p8 weights,
+    bf16 compute): row i of the result at M = 1 and 4 is bit for bit row i
+    at M = 8, at every decode shape, epilogue included."""
+    differing = 0
+    for K, N in GEMM_KN:
+        a, b, bi, r = make_gemm_inputs(8, K, N, P8_0, torch.float32, True, True, seed=10)
+        kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, compute_dtype=torch.bfloat16,
+                  activation="silu")
+        full = bits(posit_gemm(a, b, (0, 0, 0), bias=bi, residual=r, **kw))
+        for M in (1, 4):
+            part = bits(posit_gemm(a[:M].contiguous(), b, (0, 0, 0), bias=bi,
+                                   residual=r[:M].contiguous(), **kw))
+            differing += int((part != full[:M]).sum())
+        del a, b, bi, r, full
+    torch.cuda.empty_cache()
+    assert differing == 0, f"GEMM decode rows depend on the batch: {differing} values differ"
+    return {"shapes": len(GEMM_KN), "rows": (1, 4, 8), "differing_values": differing}
 
 
 def gemm_plain(a, b, bi, r, kw, chunk=16384):
@@ -221,9 +293,11 @@ def check_gemm() -> dict:
     rows = []
     for name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, res in gemm_cases():
         a, b, bi, r = make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, res)
-        a_fmt = BF16 if a_dtype == torch.bfloat16 else F32
-        cd = torch.bfloat16 if b_fmt.nbits == 8 else torch.float32
-        kw = dict(es=(0, b_fmt.es, getattr(out_fmt, "es", 0)), a_fmt=a_fmt, b_fmt=b_fmt,
+        a_fmt = (a_dtype if isinstance(a_dtype, PositFmt)
+                 else BF16 if a_dtype == torch.bfloat16 else F32)
+        cd = torch.bfloat16 if b_fmt == BF16 or b_fmt.nbits == 8 else torch.float32
+        kw = dict(es=(getattr(a_fmt, "es", 0), getattr(b_fmt, "es", 0),
+                      getattr(out_fmt, "es", 0)), a_fmt=a_fmt, b_fmt=b_fmt,
                   out_fmt=out_fmt, activation=act, compute_dtype=cd)
         got = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
                          bias=bi, residual=r, activation=act, compute_dtype=cd)
@@ -232,9 +306,8 @@ def check_gemm() -> dict:
             # both sum K f32 products (exact for bf16 operands) in different
             # orders: |diff| <= 2*K*u*(|A|@|B| + |bias|) + 8u*(|y| + |res|)
             absab = torch.cat([
-                torch.matmul(a.to(cd).float().abs(),
-                             codec_ref.decode_ref(b[:, n0:n0 + 16384].contiguous(),
-                                                  b_fmt.es, nbits=b_fmt.nbits).abs())
+                torch.matmul(operand_values(a, a_fmt).to(cd).float().abs(),
+                             operand_values(b[:, n0:n0 + 16384].contiguous(), b_fmt).abs())
                 for n0 in range(0, N, 16384)], dim=1)
             scale = absab + (bi.abs() if bi is not None else 0.0)
             tol = 2 * K * U * scale + 8 * U * (want.abs() + (r.abs() if r is not None else 0))
@@ -383,22 +456,34 @@ def check_attention() -> dict:
 
 def check_softmax() -> dict:
     """Within 1 posit ulp (signed code space) of the plain version: the
-    paper's softmax rows and phi3's logit rows, p16_1, plus a p8 case."""
+    paper's softmax rows and phi3's logit rows, p16_1, plus p8 cases, qwen's
+    vocabulary-wide rows at p8 and p16, one- and 31-column rows, and rows
+    holding a NaR code (they must come out all NaR)."""
     worst_ulp, worst_abs = 0, 0.0
-    for (R, C), nbits in [(shape, 16) for shape in SOFTMAX_SHAPES] + [((64, 300), 8)]:
+    cases = ([(shape, 16, False) for shape in SOFTMAX_SHAPES] + [((64, 300), 8, False)]
+             + [(QWEN_LOGITS, nbits, True) for nbits in (8, 16)]
+             + [((64, 1), 16, False), ((64, 31), 8, True), ((8, 2500), 16, True)])
+    for (R, C), nbits, nar in cases:
         codes = codec_ops.encode(torch.randn((R, C), generator=gen(C), device=DEV) * 3, 1,
                                  nbits=nbits)
+        half, full = 1 << (nbits - 1), 1 << nbits
+        if nar:
+            codes = codes.to(torch.int32)
+            codes[R - 1, C // 2] = half
+            codes = codes.to(torch.uint8 if nbits == 8 else torch.uint16)
         got = softmax_ops.softmax(codes, 1, nbits=nbits)
         want = posit_softmax_ref(codes, 1, nbits=nbits)
-        half, full = 1 << (nbits - 1), 1 << nbits
+        if nar:
+            assert bool((got[R - 1].to(torch.int32) == half).all()), \
+                f"softmax ({R}, {C}) p{nbits}: a NaR row must come out all NaR"
         sg, sw = got.to(torch.int64), want.to(torch.int64)
         ulp = int((torch.where(sg >= half, sg - full, sg)
                    - torch.where(sw >= half, sw - full, sw)).abs().max())
         assert ulp <= 1, f"softmax ({R}, {C}) p{nbits}: {ulp} posit ulps apart"
-        err = (codec_ref.decode_ref(got, 1, nbits=nbits)
-               - codec_ref.decode_ref(want, 1, nbits=nbits)).abs().max()
-        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, float(err))
-    return {"max_code_ulps": worst_ulp, "max_abs_err": worst_abs}
+        err = max_abs_diff(codec_ref.decode_ref(got, 1, nbits=nbits),
+                           codec_ref.decode_ref(want, 1, nbits=nbits))
+        worst_ulp, worst_abs = max(worst_ulp, ulp), max(worst_abs, err)
+    return {"cases": len(cases), "max_code_ulps": worst_ulp, "max_abs_err": worst_abs}
 
 
 # --------------------------------------------------------------- phase 5 ----
@@ -534,6 +619,7 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
                       if e.self_device_time_total > 0 and not e.key.startswith("aten::")),
                      key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
+    epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
     del eng, params, model
     torch.cuda.empty_cache()
     # the profiler slows the host several-fold, so the idle share is the
@@ -541,12 +627,55 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     busy_per_step_us = busy_us / steps
     return {"step_ms": step_ms, "profiled_steps": steps, "profiled_window_us": window_us,
             "device_busy_us_per_step": busy_per_step_us,
+            "splitk_epilogue_calls_per_step": epilogue_calls / steps,
             "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
             "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
                      c / steps} for n, us, c in by_name[:14]]}
 
 
 # --------------------------------------------------------------- phase 6 ----
+
+def gemm_timings(M: int, shapes, plain: bool = False) -> list:
+    """The fused GEMM as the model calls it (f32 activations rounded to bf16
+    in the kernel, p8_0 weights, f32 out) at M rows: device ms, the bound,
+    and one bf16 torch.matmul on the weight decoded once (by the kernel,
+    outside the timing) as the yardstick; the plain version's ms if asked."""
+    rows = []
+    for K, N in shapes:
+        a, b, _, _ = make_gemm_inputs(M, K, N, P8_0, torch.float32, False, False, seed=4)
+        kw = dict(es=(0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation="none",
+                  compute_dtype=torch.bfloat16)
+        ms = time_ms(lambda: posit_gemm(a, b, (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
+                                        compute_dtype=torch.bfloat16))
+        wdec = codec_ops.decode(b, 0, nbits=8, out_dtype=torch.bfloat16)
+        a16 = a.to(torch.bfloat16)
+        lib = time_ms(lambda: torch.matmul(a16, wdec))
+        nbytes = a.numel() * 4 + b.numel() + M * N * 4
+        rows.append({"M": M, "K": K, "N": N, "ms": ms, "library_ms": lib, "bytes": nbytes,
+                     "bound_ms": bound_ms(nbytes, 2 * M * K * N)[0]})
+        if plain:
+            rows[-1]["plain_ms"] = time_ms(lambda: gemm_plain(a, b, None, None, kw),
+                                           windows=3, calls=1)
+        del a, b, wdec, a16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def softmax_timings() -> dict:
+    """The softmax kernel and torch.softmax on the decoded f32 rows, ms."""
+    out = {}
+    for (R, C), nbits in [(shape, 16) for shape in SOFTMAX_SHAPES] + [(QWEN_LOGITS, 16),
+                                                                       (QWEN_LOGITS, 8)]:
+        codes = codec_ops.encode(torch.randn((R, C), generator=gen(8), device=DEV) * 3, 1,
+                                 nbits=nbits)
+        xf = codec_ops.decode(codes, 1, nbits=nbits)
+        out[f"{R}x{C} p{nbits}"] = {
+            "ms": time_ms(lambda: softmax_ops.softmax(codes, 1, nbits=nbits)),
+            "library_ms": time_ms(lambda: torch.softmax(xf, dim=-1)),
+            "bound_ms": bound_ms(2 * codes.numel() * nbits // 8, 6.0 * codes.numel(),
+                                 "f32")[0]}
+    return out
+
 
 def time_kernels(launches: dict, errs: dict) -> list:
     """One row per kernel; ``launches`` maps each kernel to its count on the
@@ -578,30 +707,14 @@ def time_kernels(launches: dict, errs: dict) -> list:
     del c
     # gemm: every decode-step linear at 4 slots; the JSON row is the gate/up
     # projection (the largest per-layer weight), the rest go to the details
-    shapes = []
-    for K, N in GEMM_KN:
-        # as the model calls it: f32 activations rounded to bf16 in the kernel
-        a, b, bi, r = make_gemm_inputs(4, K, N, P8_0, torch.float32, False, False, seed=4)
-        kw = dict(es=(0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation="none",
-                  compute_dtype=torch.bfloat16)
-        ms = time_ms(lambda: posit_gemm(a, b, (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
-                                        compute_dtype=torch.bfloat16))
-        plain = time_ms(lambda: gemm_plain(a, b, None, None, kw), windows=3, calls=1)
-        # the yardstick: one bf16 matmul on the weight decoded once (by the
-        # kernel, outside the timing and after the main path's count was read)
-        wdec = codec_ops.decode(b, 0, nbits=8, out_dtype=torch.bfloat16)
-        a16 = a.to(torch.bfloat16)
-        lib = time_ms(lambda: torch.matmul(a16, wdec))
-        nbytes = a.numel() * 4 + b.numel() + 4 * N * 4
-        shapes.append({"M": 4, "K": K, "N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                       "bound_ms": bound_ms(nbytes, 2 * 4 * K * N)[0]})
-        if (K, N) == (5120, 13824):
+    shapes = gemm_timings(4, GEMM_KN, plain=True)
+    for sh in shapes:
+        if (sh["K"], sh["N"]) == (5120, 13824):
             row("posit_gemm", "src/repro_torch/csrc/posit_gemm.cu",
-                "src/repro/kernels/posit_gemm/posit_gemm.py:244", ms, plain, nbytes,
-                2 * 4 * K * N, "bf16", lib)
-        del a, b, wdec, a16
-    torch.cuda.empty_cache()
+                "src/repro/kernels/posit_gemm/posit_gemm.py:244", sh["ms"], sh["plain_ms"],
+                sh["bytes"], 2 * 4 * sh["K"] * sh["N"], "bf16", sh["library_ms"])
     DETAILS["gemm_decode_shapes"] = shapes
+    DETAILS["gemm_prefill_shapes"] = gemm_timings(64, GEMM_KN[:-1])
     # attention: a decode step of the main path, 4 slots at S_max = 80 (all full)
     q, k, v, lens = attn_inputs(8, S=80, lengths=(80, 80, 80, 80), seed=5)
     kd = codec_ref.decode_ref(k, 0, nbits=8).repeat_interleave(5, dim=1)
@@ -662,6 +775,7 @@ def time_kernels(launches: dict, errs: dict) -> list:
         rows_rc = codec_ops.encode(torch.randn((r, c), generator=gen(9), device=DEV), 1, nbits=16)
         paper[f"{r}x{c}"] = time_ms(lambda: softmax_ops.softmax(rows_rc, 1, nbits=16))
     DETAILS["softmax_paper_rows_ms"] = paper
+    DETAILS["softmax_timings"] = softmax_timings()
     return rows
 
 
@@ -681,6 +795,7 @@ def main() -> int:
     log("codec", **codec_res)
     gemm_res = check_gemm()
     log("gemm", **gemm_res)
+    log("gemm_batch_invariance", **check_gemm_batch_invariance())
     quire_res = check_quire_gemm()
     log("quire_gemm", **quire_res)
     attn_res = check_attention()
@@ -707,6 +822,8 @@ def main() -> int:
     log("softmax_path", launches=sm_launches, **sm_res)
     prof = profile_decode()
     log("profile", **{k: v for k, v in prof.items() if k != "top"})
+    assert prof["splitk_epilogue_calls_per_step"] == 0, \
+        "the P8_SERVE decode step still launches a split-K epilogue kernel"
     DETAILS["decode_profile"] = prof
     q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32)
     log("profile_quire", **{k: v for k, v in q_prof.items() if k != "top"})

@@ -1,0 +1,56 @@
+"""Device times of the fused posit GEMM and the posit softmax on one NVIDIA
+GPU, for this checkout's package or for another checkout's:
+
+    python3 kernel_timings.py [--src DIR]
+
+DIR is the ``src`` directory of another checkout, for example the parent
+commit unpacked with ``git archive`` under ``build/`` (which .gitignore
+lists). Run it in turns with this checkout's (parent, change, change,
+parent) in one call on one card to compare two versions. It builds that
+package's codec, GEMM and softmax kernels, then times, with chip_smoke.py's
+phase-6 functions: the GEMM at every qwen2.5-14b decode (M = 4) and prefill
+(M = 64, no lm_head) shape beside its bound and torch.matmul bf16 on the
+decoded weight, and the softmax beside torch.softmax on the decoded rows.
+It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+
+def main() -> int:
+    src = (Path(sys.argv[sys.argv.index("--src") + 1]).resolve() if "--src" in sys.argv
+           else ROOT / "src")
+    sys.path.insert(0, str(src))
+    # imported first, so that chip_smoke's own imports of the package resolve here
+    import repro_torch
+    import torch
+
+    assert Path(repro_torch.__file__).resolve().is_relative_to(src), repro_torch.__file__
+    if not torch.cuda.is_available():
+        print("kernel_timings: no CUDA device; this script runs only on the GPU",
+              file=sys.stderr)
+        return 2
+    import chip_smoke as smoke
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_softmax"))
+    res = {"src": str(src), "build_seconds": seconds,
+           "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),
+           "gemm_prefill": smoke.gemm_timings(64, smoke.GEMM_KN[:-1]),
+           "softmax": smoke.softmax_timings(),
+           "profiler_empty_windows": smoke.DETAILS.get("profiler_empty_windows", 0),
+           "nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                         "--format=csv,noheader"], capture_output=True,
+                                        text=True, check=True).stdout.strip()}
+    print(json.dumps({"timings": res}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,6 +3,7 @@ plain version (``ref.py``) for CPU tensors."""
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -17,8 +18,12 @@ from repro_torch.kernels.posit_gemm import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "posit_gemm_launch": (_P, _P, _P, _P, _P, _P) + (_I,) * 13 + (_P,),
+    "posit_gemm_launch": (_P,) * 7 + (_I,) * 13 + (_P,),
 }
+# Tile of the tensor-core kernel (csrc/posit_gemm.cu kTcBN, kTcBK): 128
+# output columns, 64 k rows a pipeline stage; 8 rows for M <= 8, else 64.
+TC_COLS, TC_STEP = 128, 64
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 _ACT = {a: i for i, a in enumerate(ACTIVATIONS)}
 
 
@@ -39,15 +44,53 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
-    """(splits, k_per_split) of the K dimension over blockIdx.z.
+def uses_tensor_cores(a_kind: int, b_kind: int, bf16_compute: bool) -> bool:
+    """The pairs the kernel computes on bf16 tensor cores: bf16 compute, B as p8
+    or bf16 codes, A as f32, bf16 or p8 (``posit_gemm_launch`` in
+    csrc/posit_gemm.cu makes the same choice). Other pairs take the f32 FMA
+    kernels."""
+    return bf16_compute and b_kind in (1, 2) and a_kind in (0, 1, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """The tensor-core kernel's stream-K grid: ``grid`` persistent blocks walk
+    the ``tiles * steps`` (output tile, 64-row k step) items in equal
+    contiguous shares; block b takes items [total * b // grid,
+    total * (b + 1) // grid) (``share_start`` in csrc/posit_gemm.cu)."""
+    rows: int    # tile height: 8 (M <= 8, padded) or 64
+    tiles: int   # output tiles, ``rows`` x 128 columns
+    steps: int   # k steps of a tile
+    grid: int    # persistent blocks
+
+
+def split_plan(M: int, N: int, K: int, sms: int) -> StreamPlan:
+    """The tensor-core kernel's grid: one wave of resident blocks (two per SM
+    for the 8-row tile, one for the 64-row tile), fewer when the work would
+    give a block under 4 (8-row) or 8 (64-row) k steps, since every extra
+    block splits a tile once more and its part must be read back by the
+    tile's last block (a 64-row part is 32 KB). Every block's share
+    is within one k step of every other's, whatever N is, so no partial
+    wave runs at the end. For M <= 8 the plan does not depend on M, so the
+    rows of a decode batch get the same summation order whatever the batch
+    size."""
+    rows = 8 if M <= 8 else 64
+    tiles = -(-N // TC_COLS) * -(-M // rows)
+    steps = max(1, -(-K // TC_STEP))
+    resident = sms * (2 if rows == 8 else 1)
+    least = 4 if rows == 8 else 8
+    return StreamPlan(rows, tiles, steps, max(1, min(resident, tiles * steps // least)))
+
+
+def fma_split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
+    """(splits, k_per_split) of the K dimension over blockIdx.z for the f32
+    FMA kernels (p16 or f32 B).
 
     M <= 8 (the decode kernel, 256 columns a block, two blocks per SM): as
-    many splits as fit the grid into one wave of two blocks per SM, so no
-    second wave runs a handful of blocks. Larger M (64 x 64 tiles): about
-    two blocks per SM. The widths mirror ``launch_kinds`` in
-    csrc/posit_gemm.cu. For M <= 8 the plan does not depend on M, so rows of
-    a decode batch get the same summation order whatever the batch size.
+    many splits as fit the grid into one wave of two blocks per SM. Larger M
+    (64 x 64 tiles): about two blocks per SM. The widths mirror
+    ``launch_kinds`` in csrc/posit_gemm.cu. For M <= 8 the plan does not
+    depend on M.
     """
     if M <= 8:
         tiles = -(-N // 256)
@@ -58,6 +101,20 @@ def split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
     bk = 32 if M <= 8 else 16
     k_per_split = -(-(-(-K // splits)) // bk) * bk
     return -(-K // k_per_split), k_per_split
+
+
+def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
+    """The tensor-core kernel's per-tile counters, one buffer per (device,
+    stream): zeroed once and grown on demand; every kernel leaves them zero
+    again. Kernels on one stream run one after another, so they never share
+    a counter while both run; two GEMMs in flight on different streams get
+    different buffers."""
+    key = (device.index or 0, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def posit_gemm(
@@ -106,16 +163,27 @@ def posit_gemm(
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0 or N == 0:
         return out
-    splits, k_per_split = split_plan(M, N, K, _sm_count(a.device.index or 0))
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
-               if splits > 1 else None)
+    sms = _sm_count(a.device.index or 0)
+    stream = stream_handle(a)
+    counters = None
+    if uses_tensor_cores(a_kind, b_kind, compute_dtype == torch.bfloat16):
+        plan = split_plan(M, N, K, sms)
+        grid, k_per_split = plan.grid, 0
+        partial = (torch.empty((grid, 2, plan.rows, TC_COLS), dtype=torch.float32,
+                               device=a.device) if grid > 1 else None)
+        counters = _counters(a.device, stream, plan.tiles) if grid > 1 else None
+    else:
+        grid, k_per_split = fma_split_plan(M, N, K, sms)
+        partial = (torch.empty((grid, M, N), dtype=torch.float32, device=a.device)
+                   if grid > 1 else None)
     rc = _lib().posit_gemm_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
         None if partial is None else partial.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         M, N, K, a_kind, b_kind, out_kind, es[0], es[1], es[2], _ACT[activation],
-        int(compute_dtype == torch.bfloat16), splits, k_per_split, stream_handle(a))
+        int(compute_dtype == torch.bfloat16), grid, k_per_split, stream)
     check_rc(rc, "posit_gemm")
     kernels.LAUNCHES["posit_gemm"] += 1
     return out

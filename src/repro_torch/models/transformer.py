@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelCfg
+from repro_torch.core.device import resolve_device
 from repro_torch.core.pcsr import TransPolicy
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import AttnCfg
@@ -33,12 +34,14 @@ def attn_cfg(cfg: ModelCfg) -> AttnCfg:
                    head_dim=cfg.hd, qkv_bias=cfg.qkv_bias, rope_base=cfg.rope_base)
 
 
-def init_lm(gen: torch.Generator, cfg: ModelCfg, *, device="cpu",
+def init_lm(gen: torch.Generator, cfg: ModelCfg, *, device="cuda",
             policy: Optional[TransPolicy] = None) -> dict:
-    """Random parameters from ``gen``. With a posit ``policy.weights`` every
-    linear is quantized as soon as it is drawn, so the peak memory is one
-    f32 linear above the codes (a full-size model never exists in f32)."""
+    """Random parameters from ``gen`` (a generator on ``device``). With a
+    posit ``policy.weights`` every linear is quantized as soon as it is
+    drawn, so the peak memory is one f32 linear above the codes (a
+    full-size model never exists in f32)."""
     _require_dense(cfg)
+    device = resolve_device(device)
     wfmt = policy.weights if policy is not None else None
     acfg = attn_cfg(cfg)
     params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, device=device)}
@@ -63,8 +66,9 @@ def logits_fn(params: dict, h: torch.Tensor, cfg: ModelCfg,
 
 
 def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,
-               device="cpu") -> dict:
+               device="cuda") -> dict:
     _require_dense(cfg)
+    device = resolve_device(device)
     return {
         "kv": attn.init_kv_cache(B, S_max, attn_cfg(cfg), policy, device=device,
                                  n_layers=cfg.n_layers),

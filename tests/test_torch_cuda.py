@@ -12,7 +12,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.core.pcsr import P8_SERVE, parse_policy
-from repro_torch.core.types import BF16, F32, P8_0, P8_3, P16_1
+from repro_torch.core.types import BF16, F32, P8_0, P8_1, P8_2, P8_3, P16_1
 from repro_torch.kernels.posit_attention import ops as attn_ops
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref
 from repro_torch.kernels.posit_codec import ops as codec_ops
@@ -73,6 +73,50 @@ def test_gemm_kernel_matches_plain(dev, M, b_fmt, a_dtype):
     tol = 4 * K * U * (a.float().abs() @ bvals.abs() + bias.abs()) \
         + 16 * U * (want.abs() + res.abs())
     assert ((got - want).abs() <= tol).all()
+
+
+def _gemm_operands(dev, M, K, N, b_fmt, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    b = w.to(torch.bfloat16) if b_fmt == BF16 else codec_ops.encode(w, b_fmt.es,
+                                                                      nbits=b_fmt.nbits)
+    bias = torch.randn((N,), generator=g, device=dev)
+    res = torch.randn((M, N), generator=g, device=dev)
+    return a, b, bias, res
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64])
+@pytest.mark.parametrize("K,N", [(999, 1001), (1030, 1000), (640, 384)])
+@pytest.mark.parametrize("b_fmt", [P8_1, P8_2, P8_3, BF16])
+def test_gemm_tensor_core_shapes_match_plain(dev, M, K, N, b_fmt):
+    """The tensor-core path (bf16 compute, p8 at es 1..3 or bf16 weights) at
+    ragged K and N, decode and prefill row counts; same bound as above."""
+    a, b, bias, res = _gemm_operands(dev, M, K, N, b_fmt, M + K)
+    kw = dict(a_fmt=F32, b_fmt=b_fmt, out_fmt=F32, bias=bias, residual=res,
+              activation="gelu", compute_dtype=torch.bfloat16)
+    es = (0, getattr(b_fmt, "es", 0), 0)
+    got = posit_gemm(a, b, es, **kw)
+    want = posit_gemm_ref(a, b, es, **kw)
+    bvals = b.float() if b_fmt == BF16 else codec_ref.decode_ref(b, b_fmt.es, nbits=b_fmt.nbits)
+    tol = 4 * K * U * (a.to(torch.bfloat16).float().abs() @ bvals.abs() + bias.abs()) \
+        + 16 * U * (want.abs() + res.abs())
+    assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("K,N", [(5120, 5120), (5120, 1024), (777, 1001)])
+def test_gemm_decode_rows_batch_invariant(dev, K, N):
+    """Decode rows (M <= 8) are bit for bit the same whatever the batch."""
+    a, b, bias, res = _gemm_operands(dev, 8, K, N, P8_0, 3)
+    kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation="silu",
+              compute_dtype=torch.bfloat16)
+    full = posit_gemm(a, b, (0, 0, 0), bias=bias, residual=res, **kw).view(torch.int32)
+    for M in (1, 4):
+        part = posit_gemm(a[:M].contiguous(), b, (0, 0, 0), bias=bias,
+                          residual=res[:M].contiguous(), **kw).view(torch.int32)
+        assert torch.equal(part, full[:M])
+    again = posit_gemm(a, b, (0, 0, 0), bias=bias, residual=res, **kw).view(torch.int32)
+    assert torch.equal(again, full)
 
 
 @pytest.mark.parametrize("Hq,Hkv,d,kv_bits", [(10, 2, 64, 8), (32, 32, 96, 16)])
@@ -140,12 +184,14 @@ def test_quire_gemm_kernel_normalises_past_max_deferred(dev):
     assert torch.equal(posit_quire_gemm(a, b, (1, 1, 1), **kw), want)
 
 
-@pytest.mark.parametrize("R,C,nbits", [(1024, 8, 16), (64, 300, 8), (4, 32064, 16)])
+@pytest.mark.parametrize("R,C,nbits", [
+    (1024, 8, 16), (64, 300, 8), (4, 32064, 16), (64, 1, 16), (64, 31, 8), (3, 1025, 8),
+    (8, 2500, 16), (4, 152064, 8), (4, 152064, 16), (2, 300000, 16)])
 def test_softmax_kernel_within_one_ulp(dev, R, C, nbits):
     g = torch.Generator(device=dev).manual_seed(C)
     codes = codec_ops.encode(torch.randn((R, C), generator=g, device=dev) * 3, 1,
                              nbits=nbits).to(torch.int32)
-    codes[0, 1] = 1 << (nbits - 1)
+    codes[0, min(1, C - 1)] = 1 << (nbits - 1)
     codes = codes.to(torch.uint8 if nbits == 8 else torch.uint16)
     before = kernels.LAUNCHES["posit_softmax"]
     got = softmax(codes, 1, nbits=nbits)
@@ -157,6 +203,7 @@ def test_softmax_kernel_within_one_ulp(dev, R, C, nbits):
     sw = torch.where(sw >= half, sw - full, sw)
     assert int((sg - sw).abs().max()) <= 1
     assert bool((got[0] == half).all())
+    assert torch.equal(softmax(codes, 1, nbits=nbits), got)   # a fixed sum order
 
 
 def test_reduced_engine_on_card(dev):

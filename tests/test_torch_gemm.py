@@ -26,7 +26,8 @@ from repro.kernels.posit_gemm.posit_gemm import posit_gemm as jax_posit_gemm
 from repro_torch.core import types
 from repro_torch.core.dot import format_pair_plan, posit_matmul_wx
 from repro_torch.core.pcsr import OperandSlots
-from repro_torch.kernels.posit_gemm.ops import gemm, posit_gemm, split_plan
+from repro_torch.kernels.posit_gemm.ops import (TC_COLS, TC_STEP, fma_split_plan, gemm,
+                                             posit_gemm, split_plan, uses_tensor_cores)
 
 U = 2.0 ** -24
 M, K, N = 5, 70, 45   # ragged against every tile size
@@ -167,14 +168,80 @@ def test_format_pair_plan_matches_reference():
             assert (got.decode_a, got.decode_b) == (want.decode_a, want.decode_b)
 
 
+QWEN_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
+SMS = 132
+
+
+def _shares(plan):
+    """Each block's [start, end) of the plan's work items (csrc/posit_gemm.cu
+    ``share_start``)."""
+    total = plan.tiles * plan.steps
+    return [(total * b // plan.grid, total * (b + 1) // plan.grid) for b in range(plan.grid)]
+
+
+def _owner(total, x, grid):
+    """csrc/posit_gemm.cu ``share_owner``: the block whose share holds item x."""
+    return ((x + 1) * grid - 1) // total
+
+
 def test_split_plan_is_row_count_independent_for_decode():
-    """A decode batch of 1..8 rows gets one K partition, so a row's sum order
-    does not depend on how many other rows share the batch."""
-    for Kd, Nd in ((5120, 5120), (5120, 1024), (13824, 5120), (5120, 152064)):
-        plans = {split_plan(m, Nd, Kd, 132) for m in range(1, 9)}
+    """A decode batch of 1..8 rows gets one plan (grid and shares), so a
+    row's sum order does not depend on how many other rows share the batch."""
+    for Kd, Nd in QWEN_KN:
+        plans = {split_plan(m, Nd, Kd, SMS) for m in range(1, 9)}
         assert len(plans) == 1
-        splits, kps = plans.pop()
-        assert splits * kps >= Kd and (splits - 1) * kps < Kd
+        plan = plans.pop()
+        assert plan.rows == 8 and plan.steps * TC_STEP >= Kd > (plan.steps - 1) * TC_STEP
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64, 300])
+@pytest.mark.parametrize("K,N", QWEN_KN + ((999, 1001), (1, 7), (70, 45)))
+def test_split_plan_covers_k_and_fills_whole_waves(M, K, N):
+    """Every (tile, k step) item belongs to exactly one block, each tile's
+    steps cover K, the kernel's owner formula finds each item's block, and
+    the blocks' shares differ by at most one step: no block runs a second
+    wave. The grid is the resident count (2 blocks an SM for 8-row tiles, 1
+    for 64-row tiles) unless that would leave a block under its least share."""
+    plan = split_plan(M, N, K, SMS)
+    rows = 8 if M <= 8 else 64
+    assert plan.rows == rows
+    assert plan.tiles == -(-N // TC_COLS) * -(-M // rows)
+    assert plan.steps * TC_STEP >= K > (plan.steps - 1) * TC_STEP
+    total = plan.tiles * plan.steps
+    shares = _shares(plan)
+    assert shares[0][0] == 0 and shares[-1][1] == total
+    assert all(a[1] == b[0] for a, b in zip(shares, shares[1:]))
+    sizes = [e - s for s, e in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    resident = SMS * (2 if rows == 8 else 1)
+    least = 4 if rows == 8 else 8
+    assert plan.grid == resident or plan.grid == max(1, total // least) < resident
+    for x in range(0, total, max(1, total // 997)):
+        b = _owner(total, x, plan.grid)
+        assert shares[b][0] <= x < shares[b][1]
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 64])
+@pytest.mark.parametrize("K,N", QWEN_KN + ((999, 1001),))
+def test_fma_split_plan_covers_k(M, K, N):
+    """The f32 FMA kernels' K splits: every k in exactly one split, no empty
+    split, and for M <= 8 the same splits whatever M."""
+    splits, kps = fma_split_plan(M, N, K, SMS)
+    assert splits * kps >= K > (splits - 1) * kps
+    if M <= 8:
+        assert (splits, kps) == fma_split_plan(1, N, K, SMS)
+
+
+@pytest.mark.parametrize("a_fmt,b_fmt,cd,want", [
+    ("f32", "p8_0", "bf16", True), ("bf16", "p8_3", "bf16", True), ("p8_0", "p8_0", "bf16", True),
+    ("f32", "bf16", "bf16", True), ("p16_1", "p8_0", "bf16", False),
+    ("f32", "p8_0", "f32", False), ("f32", "p16_1", "bf16", False),
+    ("f32", "f32", "bf16", False)])
+def test_tensor_core_pairs(a_fmt, b_fmt, cd, want):
+    """The pairs that go to the bf16 tensor cores: bf16 compute, B p8 or bf16,
+    A f32/bf16/p8; p16 or f32 B and f32 compute stay on the FMA kernels."""
+    kind = {"f32": 0, "bf16": 1, "p8_0": 2, "p8_3": 2, "p16_1": 3}
+    assert uses_tensor_cores(kind[a_fmt], kind[b_fmt], cd == "bf16") is want
 
 
 def test_unported_variants_raise():

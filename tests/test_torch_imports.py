@@ -26,10 +26,13 @@ from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm
 from repro_torch.kernels.posit_softmax import ops as softmax_ops
 from repro_torch.launch import serve as serve_mod
+from repro_torch.core.pcsr import P8_SERVE
+from repro_torch.models import transformer
 from repro_torch.models.registry import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "kernel_timings.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -74,6 +77,21 @@ def test_cuda_default_raises_without_cuda():
         serve_mod.serve("qwen2.5-14b", reduced=True, requests=1, prompt_len=4, gen=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"blocks": {}}, cfg)
+
+
+@pytest.mark.parametrize("fn", ["init_lm", "init_cache"])
+def test_model_inits_default_to_cuda(fn):
+    """transformer.init_lm / init_cache without ``device`` go to the CUDA
+    device through resolve_device: without CUDA they raise its error instead
+    of quietly running on the CPU."""
+    f = getattr(transformer, fn)
+    assert inspect.signature(f).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    cfg = get_arch("qwen2.5-14b").reduced()
+    args = (torch.Generator(), cfg) if fn == "init_lm" else (cfg, 2, 8, P8_SERVE)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        f(*args)
 
 
 def test_cpu_tensors_take_the_plain_version():

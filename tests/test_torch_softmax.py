@@ -21,7 +21,7 @@ from repro.kernels.posit_softmax.ref import posit_softmax_ref as jax_softmax_ref
 from repro_torch import kernels
 from repro_torch.core import types
 from repro_torch.core.dot import posit_softmax
-from repro_torch.kernels.posit_softmax.ops import softmax
+from repro_torch.kernels.posit_softmax.ops import MAX_CLUSTER, NARROW_MAX, row_plan, softmax
 from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref
 
 
@@ -83,3 +83,25 @@ def test_softmax_refuses_bad_inputs():
         softmax(torch.zeros((2, 3, 4), dtype=torch.uint8), 0, nbits=8)
     with pytest.raises(ValueError):
         softmax(torch.zeros((2, 3), dtype=torch.uint8), 0, nbits=12)
+
+
+@pytest.mark.parametrize("C", [1, 31, 128, 1024, 1025, 2500, 32064, 152064, 300000])
+def test_row_plan_covers_each_row_once(C):
+    """The kernel's row split: a warp per row up to NARROW_MAX columns, else a
+    cluster of at most MAX_CLUSTER blocks whose chunks cover each column of
+    the row exactly once, none empty."""
+    cluster, chunk = row_plan(C)
+    if C <= NARROW_MAX:
+        assert cluster == 0
+        lanes = [c for j in range(32) for c in range(j * 32, (j + 1) * 32)]
+        assert sorted(c for c in lanes if c < C) == list(range(C))
+        return
+    assert 1 <= cluster <= MAX_CLUSTER
+    cover = np.zeros(C, np.int64)
+    for r in range(cluster):
+        lo, hi = r * chunk, min(C, (r + 1) * chunk)
+        assert hi > lo
+        cover[lo:hi] += 1
+    assert (cover == 1).all()
+    if C >= 32064:
+        assert cluster == MAX_CLUSTER   # a vocabulary row spreads over 16 SMs
