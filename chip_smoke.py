@@ -10,7 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      weights and p16 weights (the f32-FMA kernels, M = 4 and 64); its
      decode rows bit for bit the same at M = 1, 4 and 8;
      the quire GEMM kernel against its plain version, bit for bit, at
-     phi3-mini-3.8b's shapes, and against itself unsplit;
+     phi3-mini-3.8b's shapes, and against itself unsplit, on Gaussian
+     operands and on wide-span ones (every non-NaR code, minpos and maxpos
+     in one chunk) that send products through its per-product branch; the
+     share of products that take that branch, per case;
   4. the decode-attention kernel against its plain version (qwen2.5-14b's
      and phi3-mini-3.8b's head shapes); the softmax kernel against its plain
      version (within 1 posit ulp), up to qwen's vocabulary, with a NaR row;
@@ -27,15 +30,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
      and a profiled decode step of each served model (the P8_SERVE step
-     must run no split-K epilogue kernel);
+     must run no split-K epilogue kernel; the quire step one kernel a quire
+     GEMM call, no readout or split-sum kernel), with the quire step's share
+     of per-product-branch products;
   6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call; the GEMM also at
-     every decode and prefill (M = 64) shape of qwen2.5-14b.
+     every decode and prefill (M = 64) shape of qwen2.5-14b, the quire GEMM
+     at every phi3 decode (M = 4, lm_head included) and prefill (M = 32)
+     shape.
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
 time from torch.profiler (``time_ms``). kernel_timings.py reuses phase 6's
-GEMM and softmax timings to compare two checkouts on one card.
+GEMM, quire GEMM and softmax timings to compare two checkouts on one card.
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from repro_torch.kernels.posit_codec import ops as codec_ops  # noqa: E402
 from repro_torch.kernels.posit_codec import ref as codec_ref  # noqa: E402
 from repro_torch.kernels.posit_gemm.ops import posit_gemm  # noqa: E402
 from repro_torch.kernels.posit_gemm.ref import posit_gemm_ref  # noqa: E402
+from repro_torch.kernels.posit_quire_gemm import ops as quire_ops  # noqa: E402
 from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm  # noqa: E402
 from repro_torch.kernels.posit_quire_gemm.ref import posit_quire_gemm_ref  # noqa: E402
 from repro_torch.kernels.posit_softmax import ops as softmax_ops  # noqa: E402
@@ -73,9 +81,14 @@ from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-# bf16 / f32: data sheet; int32: 132 SMs x 64 INT32 lanes x 1.98 GHz
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int32": 16.7e12}
-QUIRE_OPS_PER_PRODUCT = 4   # multiply, offset add, placing shift, one limb add
+# bf16 / f32 / int8 (tensor cores, dense): data sheet; int32: 132 SMs x 64
+# INT32 lanes x 1.98 GHz
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12, "int32": 16.7e12}
+# The quire GEMM's bound: the least any implementation needs, one int8
+# tensor-core MAC a product beside the bytes. The floor of a CUDA-core loop
+# that places every product on its own in the quire (multiply, offset add,
+# placing shift, one limb add) is kept beside it, as that loop's floor only.
+QUIRE_OPS_PER_PRODUCT = 4
 U = 2.0 ** -24              # f32 unit roundoff
 DEV = torch.device("cuda")
 QWEN = get_arch("qwen2.5-14b")
@@ -83,6 +96,7 @@ PHI3 = get_arch("phi3-mini-3.8b")
 QUIRE_SPEC = "weights=p16_1,kv=p16_1,dataflow=quire"
 GEMM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
 PHI3_KN = ((3072, 3072), (3072, 8192), (8192, 3072))
+PHI3_LM_HEAD = (3072, 32064)
 SOFTMAX_SHAPES = ((1024, 8), (1024, 32), (1024, 128), (4, 32064))
 QWEN_LOGITS = (4, 152064)
 DETAILS: dict = {}
@@ -146,7 +160,7 @@ def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
     counts as agreement, a NaN on one side as an infinite difference."""
     g, w = got.to(torch.float32), want.to(torch.float32)
     d = (g - w).abs()
-    d = torch.where(g.isnan() & w.isnan(), torch.zeros_like(d), d)
+    d = torch.where((g == w) | (g.isnan() & w.isnan()), torch.zeros_like(d), d)
     return float(torch.nan_to_num(d, nan=float("inf")).max()) if d.numel() else 0.0
 
 
@@ -331,38 +345,78 @@ def check_gemm() -> dict:
 
 
 def quire_cases():
-    """(name, M, K, N, a_fmt, b_fmt, out_fmt, bias, act, residual)."""
+    """(name, M, K, N, a_fmt, b_fmt, out_fmt, bias, act, residual, kind)."""
     cases = []
     for M in (1, 4, 32):
         for K, N in PHI3_KN:
             act = "silu" if (K, N) == (3072, 8192) else "none"   # gate (up: none)
             # down, and 3072x3072 as wo at M = 4 (as wq, no epilogue, otherwise)
             res = K == 8192 or (M == 4 and (K, N) == (3072, 3072))
-            cases.append((f"p16 M{M} {K}x{N}", M, K, N, P16_1, P16_1, F32, False, act, res))
-    cases.append(("p16 lm_head M4 3072x32064", 4, 3072, 32064, P16_1, P16_1, F32, False,
-                  "none", False))
+            cases.append((f"p16 M{M} {K}x{N}", M, K, N, P16_1, P16_1, F32, False, act, res,
+                          "gauss"))
+    cases.append(("p16 lm_head M4 3072x32064", 4, *PHI3_LM_HEAD, P16_1, P16_1, F32, False,
+                  "none", False, "gauss"))
     cases.append(("p8 out M4 3072x3072", 4, 3072, 3072, P8_0, P8_0, P8_0, False, "none",
-                  False))
+                  False, "gauss"))
     cases.append(("p8 out relu M4 3072x3072", 4, 3072, 3072, P8_2, P8_2, P8_0, True, "relu",
-                  False))
+                  False, "gauss"))
     cases.append(("p16 x p8 M4 3072x8192", 4, 3072, 8192, P16_1, P8_0, F32, True, "none",
-                  True))
+                  True, "gauss"))
     # 5..8 rows, a column count off every vector width, the gelu epilogue
     cases.append(("p16 out M6 3072x1001", 6, 3072, 1001, P16_1, P16_1, P16_1, True, "gelu",
-                  True))
+                  True, "gauss"))
+    # wide spans: every non-NaR code drawn uniformly, or minpos and maxpos in
+    # one chunk of a row and of a column; products leave the window
+    for name, M, a_fmt, b_fmt, out_fmt, kind, epi in (
+            ("p16 all codes M4", 4, P16_1, P16_1, P16_1, "all_codes", False),
+            ("p16 minmax M8", 8, P16_1, P16_1, F32, "minmax", True),
+            ("p8 x p16 all codes M4", 4, P8_0, P16_1, F32, "all_codes", False),
+            ("p8 x p16 minmax M4", 4, P8_0, P16_1, P16_1, "minmax", True),
+            ("p8_0 all codes M4", 4, P8_0, P8_0, P8_0, "all_codes", False),
+            ("p8_3 all codes M4", 4, P8_3, P8_3, P8_3, "all_codes", False),
+            ("p8_3 minmax M32", 32, P8_3, P8_3, F32, "minmax", True)):
+        cases.append((f"{name} 3072x1001", M, 3072, 1001, a_fmt, b_fmt, out_fmt, epi,
+                      "silu" if epi else "none", epi, kind))
     return cases
 
 
-def make_quire_inputs(M, K, N, a_fmt, b_fmt, bias, residual, seed=0):
-    """Activation and weight codes as the quire linear makes them, plus a
-    NaR in the last row of A (its outputs must read out NaR)."""
+def spans_window(fmt: PositFmt) -> bool:
+    """Whether a format's scales span more than the quire GEMM's window:
+    only then can an operand fall below its anchor (p8 at es 0 spans 12
+    binades, inside the window of 21)."""
+    # imported here: kernel_timings.py imports this module with older packages
+    from repro_torch.kernels.posit_quire_gemm.ref import window
+    return 2 * ((fmt.nbits - 2) << fmt.es) > window(fmt.nbits)
+
+
+def _quire_codes(g, shape, fmt, kind, scale=1.0):
+    """Codes of normal values (gauss), of every non-NaR code drawn uniformly
+    (all_codes), or gauss with +-maxpos and +-minpos in the first chunk of
+    row 0 and of column 0 (minmax)."""
+    n = fmt.nbits
+    if kind == "all_codes":
+        c = torch.randint(0, (1 << n) - 1, shape, generator=g, device=DEV, dtype=torch.int32)
+        return torch.where(c >= 1 << (n - 1), c + 1, c)
+    c = codec_ops.encode(torch.randn(shape, generator=g, device=DEV) * scale, fmt.es,
+                         nbits=n).to(torch.int32)
+    if kind == "minmax":
+        big, tiny = (1 << (n - 1)) - 1, 1
+        edge = torch.tensor([big, tiny, (1 << n) - big, (1 << n) - tiny], dtype=torch.int32,
+                            device=DEV)
+        c[0, :4] = edge
+        c[:4, 0] = edge.flip(0)
+    return c
+
+
+def make_quire_inputs(M, K, N, a_fmt, b_fmt, bias, residual, seed=0, kind="gauss"):
+    """Activation and weight codes as the quire linear makes them (or of a
+    wide span, ``kind``), plus a NaR in the last row of A (its outputs must
+    read out NaR)."""
     g = gen(seed)
-    a = codec_ops.encode(torch.randn((M, K), generator=g, device=DEV), a_fmt.es,
-                         nbits=a_fmt.nbits).to(torch.int32)
+    a = _quire_codes(g, (M, K), a_fmt, kind)
     a[M - 1, K // 3] = 1 << (a_fmt.nbits - 1)
     a = a.to(a_fmt.storage_dtype)
-    b = codec_ops.encode(torch.randn((K, N), generator=g, device=DEV) * K ** -0.5, b_fmt.es,
-                         nbits=b_fmt.nbits)
+    b = _quire_codes(g, (K, N), b_fmt, kind, scale=K ** -0.5).to(b_fmt.storage_dtype)
     bi = torch.randn((N,), generator=g, device=DEV) * 0.1 if bias else None
     r = torch.randn((M, N), generator=g, device=DEV) if residual else None
     return a, b, bi, r
@@ -376,12 +430,17 @@ def check_quire_gemm() -> dict:
     """Bit for bit against the plain version on two 128-column slices of N
     (first and last, at full M and K: the plain version's int64 digit
     tensors grow with M*N), and the whole result against the same kernel
-    with split-K forced to 1. Returns the largest difference measured over
-    the compared slices: |value| (posit outputs decoded) and code ulps."""
+    with split-K forced to 1. Reports the share of products that took the
+    kernel's per-product branch (the window rule of ref.py), asserted above
+    0 in the wide-span cases whose formats span more than the window.
+    Returns the largest difference measured over the compared slices:
+    |value| (posit outputs decoded) and code ulps."""
+    # imported here: kernel_timings.py imports this module with older packages
+    from repro_torch.kernels.posit_quire_gemm.ref import per_product_share
     rows = []
     worst_abs, worst_ulp = 0.0, 0
-    for name, M, K, N, a_fmt, b_fmt, out_fmt, bias, act, res in quire_cases():
-        a, b, bi, r = make_quire_inputs(M, K, N, a_fmt, b_fmt, bias, res)
+    for name, M, K, N, a_fmt, b_fmt, out_fmt, bias, act, res, kind in quire_cases():
+        a, b, bi, r = make_quire_inputs(M, K, N, a_fmt, b_fmt, bias, res, kind=kind)
         es = (a_fmt.es, b_fmt.es, getattr(out_fmt, "es", 0))
         kw = dict(a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt, activation=act)
         got = posit_quire_gemm(a, b, es, bias=bi, residual=r, **kw)
@@ -408,14 +467,20 @@ def check_quire_gemm() -> dict:
         nar = got[M - 1].isnan().all() if out_fmt == F32 else \
             (got[M - 1].to(torch.int32) == 1 << (out_fmt.nbits - 1)).all()
         assert bool(nar), f"quire {name}: a NaR operand must make its row NaR"
-        rows.append({"case": name, "mismatches": mismatches, "split_k_equal": True,
-                     "max_abs_err": case_abs, "max_code_ulps": case_ulp})
+        count, share = per_product_share(a, b, es, a_fmt=a_fmt, b_fmt=b_fmt)
+        if kind != "gauss" and (spans_window(a_fmt) or spans_window(b_fmt)):
+            assert count > 0, f"quire {name}: no product took the per-product branch"
+        rows.append({"case": name, "kind": kind, "mismatches": mismatches,
+                     "split_k_equal": True, "max_abs_err": case_abs,
+                     "max_code_ulps": case_ulp, "per_product_products": count,
+                     "per_product_share": share})
         worst_abs, worst_ulp = max(worst_abs, case_abs), max(worst_ulp, case_ulp)
         del a, b, bi, r, got, one
     torch.cuda.empty_cache()
     DETAILS["quire_checks"] = rows
     return {"cases": len(rows), "mismatches": 0, "max_abs_err": worst_abs,
-            "max_code_ulps": worst_ulp}
+            "max_code_ulps": worst_ulp,
+            "per_product_share": {r["case"]: r["per_product_share"] for r in rows}}
 
 
 # --------------------------------------------------------------- phase 4 ----
@@ -588,10 +653,13 @@ def run_softmax_path() -> tuple[dict, dict]:
     return {"rows": rows}, launches
 
 
-def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 3) -> dict:
+def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 3,
+                   share: bool = False) -> dict:
     """Where a decode step's time goes: the full model at 4 busy slots, a
     few steps under torch.profiler (device time by kernel name, and the
-    device-busy share of the window), plus the step time without it."""
+    device-busy share of the window), plus the step time without it. With
+    ``share``, one more step records the share of the quire GEMM's
+    products that took its per-product branch (not timed)."""
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(arch)
@@ -609,17 +677,22 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     t0 = time.perf_counter()
+    quire_before = kernels.LAUNCHES["posit_quire_gemm"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
     window_us = (time.perf_counter() - t0) * 1e6
+    quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - quire_before
+    shares = quire_step_share(eng) if share else None
     # kernels only: the aten::* rows repeat their kernels' device time
     by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                       if e.self_device_time_total > 0 and not e.key.startswith("aten::")),
                      key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
     epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
+    quire_kernels = sum(c for n, _, c in by_name if "quire" in n)
+    quire_readouts = sum(c for n, _, c in by_name if "quire" in n and "readout" in n)
     del eng, params, model
     torch.cuda.empty_cache()
     # the profiler slows the host several-fold, so the idle share is the
@@ -628,9 +701,38 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     return {"step_ms": step_ms, "profiled_steps": steps, "profiled_window_us": window_us,
             "device_busy_us_per_step": busy_per_step_us,
             "splitk_epilogue_calls_per_step": epilogue_calls / steps,
+            "quire_gemm_calls_per_step": quire_calls / steps,
+            "quire_kernels_per_step": quire_kernels / steps,
+            "quire_readout_kernels_per_step": quire_readouts / steps,
+            "quire_per_product_share": shares,
             "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
             "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
                      c / steps} for n, us, c in by_name[:14]]}
+
+
+def quire_step_share(eng) -> dict:
+    """One engine step with every quire GEMM call's operands run through the
+    window rule (ref.py ``per_product_share``): the share of the step's
+    products that took the per-product branch."""
+    # imported here: kernel_timings.py imports this module with older packages
+    from repro_torch.kernels.posit_quire_gemm.ref import per_product_share
+    seen = {"calls": 0, "products": 0, "per_product": 0}
+    kernel = quire_ops.posit_quire_gemm
+
+    def counted(a, b, es, **kw):
+        count, _ = per_product_share(a, b, es, a_fmt=kw["a_fmt"], b_fmt=kw["b_fmt"])
+        seen["calls"] += 1
+        seen["products"] += a.shape[0] * a.shape[1] * b.shape[1]
+        seen["per_product"] += count
+        return kernel(a, b, es, **kw)
+
+    quire_ops.posit_quire_gemm = counted
+    try:
+        eng.step()
+        torch.cuda.synchronize()
+    finally:
+        quire_ops.posit_quire_gemm = kernel
+    return dict(seen, share=seen["per_product"] / max(1, seen["products"]))
 
 
 # --------------------------------------------------------------- phase 6 ----
@@ -657,6 +759,38 @@ def gemm_timings(M: int, shapes, plain: bool = False) -> list:
             rows[-1]["plain_ms"] = time_ms(lambda: gemm_plain(a, b, None, None, kw),
                                            windows=3, calls=1)
         del a, b, wdec, a16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def quire_timings(M: int, shapes, plain: bool = False) -> list:
+    """The quire GEMM as the quire linear calls it (p16_1 x p16_1 -> f32) at
+    M rows: device ms beside the bound (bytes, or one int8 tensor-core MAC
+    of 2 operations a product) and, as that loop's floor only, a per-product
+    CUDA-core loop's (4 int32 operations a product). No single PyTorch call
+    sums exactly; the fused posit GEMM at the same shape (f32 accumulation)
+    is timed beside it as the price of exactness. The plain version's ms at
+    gate/up (3072x8192) if asked."""
+    rows = []
+    for K, N in shapes:
+        a, b, _, _ = make_quire_inputs(M, K, N, P16_1, P16_1, False, False, seed=7)
+        kw = dict(a_fmt=P16_1, b_fmt=P16_1, out_fmt=F32)
+        ms = time_ms(lambda: posit_quire_gemm(a, b, (1, 1, 1), **kw))
+        af = codec_ops.decode(a, 1, nbits=16)
+        fused = time_ms(lambda: posit_gemm(af, b, (0, 1, 0), a_fmt=F32, b_fmt=P16_1,
+                                           out_fmt=F32))
+        products = M * K * N
+        nbytes = a.numel() * 2 + b.numel() * 2 + M * N * 4
+        rows.append({"M": M, "K": K, "N": N, "ms": ms, "fused_posit_gemm_ms": fused,
+                     "bytes": nbytes, "products": products,
+                     "bound_ms": bound_ms(nbytes, 2 * products, "int8")[0],
+                     "loop_floor_ms": bound_ms(nbytes, QUIRE_OPS_PER_PRODUCT * products,
+                                               "int32")[0],
+                     "products_per_s": products / (ms * 1e-3)})
+        if plain and (K, N) == (3072, 8192):
+            rows[-1]["plain_ms"] = time_ms(
+                lambda: posit_quire_gemm_ref(a, b, (1, 1, 1), **kw), windows=3, calls=1)
+        del a, b, af
         torch.cuda.empty_cache()
     return rows
 
@@ -733,32 +867,16 @@ def time_kernels(launches: dict, errs: dict) -> list:
     DETAILS["attention_S512_ms"] = time_ms(
         lambda: attn_ops.decode_attention(q5, k5, v5, l5, 0, kv_bits=8))
     del q, k, v, kd, vd, q5, k5, v5
-    # quire GEMM: the decode-step gate/up of phi3 at 4 slots, p16 x p16 -> f32.
-    # No single PyTorch call sums exactly; the fused posit GEMM at the same
-    # shape (f32 accumulation) goes to the details as the price of exactness.
-    shapes = []
-    for K, N in PHI3_KN:
-        a, b, _, _ = make_quire_inputs(4, K, N, P16_1, P16_1, False, False, seed=7)
-        kw = dict(a_fmt=P16_1, b_fmt=P16_1, out_fmt=F32)
-        ms = time_ms(lambda: posit_quire_gemm(a, b, (1, 1, 1), **kw))
-        af = codec_ops.decode(a, 1, nbits=16)
-        fused = time_ms(lambda: posit_gemm(af, b, (0, 1, 0), a_fmt=F32, b_fmt=P16_1,
-                                           out_fmt=F32))
-        nbytes = a.numel() * 2 + b.numel() * 2 + 4 * N * 4
-        ops = QUIRE_OPS_PER_PRODUCT * 4 * K * N
-        shapes.append({"M": 4, "K": K, "N": N, "ms": ms, "fused_posit_gemm_ms": fused,
-                       "bound_ms": bound_ms(nbytes, ops, "int32")[0],
-                       "products_per_s": 4 * K * N / (ms * 1e-3)})
-        if (K, N) == (3072, 8192):
-            plain = time_ms(lambda: posit_quire_gemm_ref(a, b, (1, 1, 1), **kw), windows=3,
-                            calls=1)
-            shapes[-1]["plain_ms"] = plain
+    # quire GEMM: the decode-step gate/up of phi3 at 4 slots, p16 x p16 -> f32;
+    # every phi3 decode and prefill shape goes to the details
+    shapes = quire_timings(4, PHI3_KN + (PHI3_LM_HEAD,), plain=True)
+    for sh in shapes:
+        if (sh["K"], sh["N"]) == (3072, 8192):
             row("posit_quire_gemm", "src/repro_torch/csrc/posit_quire_gemm.cu",
-                "src/repro/kernels/posit_quire_gemm/posit_quire_gemm.py:186", ms, plain,
-                nbytes, ops, "int32", None)
-        del a, b, af
-    torch.cuda.empty_cache()
+                "src/repro/kernels/posit_quire_gemm/posit_quire_gemm.py:186", sh["ms"],
+                sh["plain_ms"], sh["bytes"], 2 * sh["products"], "int8", None)
     DETAILS["quire_decode_shapes"] = shapes
+    DETAILS["quire_prefill_shapes"] = quire_timings(32, PHI3_KN)
     # softmax: phi3's logits at 4 slots, (4, 32064) p16_1; the yardstick is
     # torch.softmax on the decoded f32 rows
     R, C = SOFTMAX_SHAPES[-1]
@@ -825,8 +943,13 @@ def main() -> int:
     assert prof["splitk_epilogue_calls_per_step"] == 0, \
         "the P8_SERVE decode step still launches a split-K epilogue kernel"
     DETAILS["decode_profile"] = prof
-    q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32)
+    q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32, share=True)
     log("profile_quire", **{k: v for k, v in q_prof.items() if k != "top"})
+    assert q_prof["quire_readout_kernels_per_step"] == 0, \
+        "the quire decode step still launches a readout kernel"
+    assert q_prof["quire_gemm_calls_per_step"] > 0 and \
+        q_prof["quire_kernels_per_step"] == q_prof["quire_gemm_calls_per_step"], \
+        "a quire GEMM call launched other than one kernel"
     DETAILS["quire_decode_profile"] = q_prof
 
     errs = {"posit_encode": codec_res["encode_max_abs_err"],

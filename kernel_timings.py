@@ -1,5 +1,5 @@
-"""Device times of the fused posit GEMM and the posit softmax on one NVIDIA
-GPU, for this checkout's package or for another checkout's:
+"""Device times of the fused posit GEMM, the quire GEMM and the posit softmax
+on one NVIDIA GPU, for this checkout's package or for another checkout's:
 
     python3 kernel_timings.py [--src DIR]
 
@@ -7,10 +7,14 @@ DIR is the ``src`` directory of another checkout, for example the parent
 commit unpacked with ``git archive`` under ``build/`` (which .gitignore
 lists). Run it in turns with this checkout's (parent, change, change,
 parent) in one call on one card to compare two versions. It builds that
-package's codec, GEMM and softmax kernels, then times, with chip_smoke.py's
-phase-6 functions: the GEMM at every qwen2.5-14b decode (M = 4) and prefill
-(M = 64, no lm_head) shape beside its bound and torch.matmul bf16 on the
-decoded weight, and the softmax beside torch.softmax on the decoded rows.
+package's codec, GEMM, quire GEMM and softmax kernels, then times, with
+chip_smoke.py's phase-6 functions: the GEMM at every qwen2.5-14b decode
+(M = 4) and prefill (M = 64, no lm_head) shape beside its bound and
+torch.matmul bf16 on the decoded weight; the quire GEMM at every
+phi3-mini-3.8b decode (M = 4, lm_head 3072 x 32064 included) and prefill
+(M = 32) shape beside its bound (bytes, or one int8 tensor-core MAC a
+product) and a per-product loop's floor (4 int32 operations a product); and
+the softmax beside torch.softmax on the decoded rows.
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -39,10 +43,13 @@ def main() -> int:
     import chip_smoke as smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_softmax"))
+    seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_quire_gemm",
+                                 "posit_softmax"))
     res = {"src": str(src), "build_seconds": seconds,
            "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),
            "gemm_prefill": smoke.gemm_timings(64, smoke.GEMM_KN[:-1]),
+           "quire_decode": smoke.quire_timings(4, smoke.PHI3_KN + (smoke.PHI3_LM_HEAD,)),
+           "quire_prefill": smoke.quire_timings(32, smoke.PHI3_KN),
            "softmax": smoke.softmax_timings(),
            "profiler_empty_windows": smoke.DETAILS.get("profiler_empty_windows", 0),
            "nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

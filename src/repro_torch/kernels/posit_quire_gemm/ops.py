@@ -3,14 +3,14 @@ for CUDA tensors, the plain version (``ref.py``) for CPU tensors."""
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import kernels
 from repro_torch.core.dot import ACTIVATIONS
 from repro_torch.core.pcsr import OperandSlots
-from repro_torch.core.quire import QuireFmt
 from repro_torch.core.types import F32, Fmt, PositFmt
 from repro_torch.kernels import build, check_rc, on_cpu, require, stream_handle
 from repro_torch.kernels.posit_gemm.ops import _sm_count
@@ -18,14 +18,16 @@ from repro_torch.kernels.posit_quire_gemm import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "posit_quire_gemm_launch": (_P,) * 6 + (_I,) * 12 + (_P,),
+    "posit_quire_gemm_launch": (_P,) * 5 + (_I,) * 12 + (_P,),
+    "posit_quire_gemm_max_clusters": (_I,) * 4 + (_P,),
 }
 _ACT = {a: i for i, a in enumerate(ACTIVATIONS)}
 _OUT_KIND = {"f32": 0, 8: 2, 16: 3}   # storage kinds of csrc/posit_codec.cuh
-# (BM, BN, BK) of the kernel's tile per row-tile kind, mirroring `launch_tiles`
-# in csrc/posit_quire_gemm.cu: 256 threads, one output each.
-TILES = {1: (1, 256, 8), 4: (4, 64, 32), 8: (8, 32, 64)}
-MAX_SPLITS = 64
+# (BM, BN, BK) of the kernel's tile per row-tile kind, mirroring `run_rows`
+# in csrc/posit_quire_gemm.cu: 64 columns x 4 k groups of threads, BM rows;
+# K splits in whole 128-k stages over the blocks of one cluster.
+TILES = {1: (1, 64, ref.K_TILE), 4: (4, 64, ref.K_TILE), 8: (8, 64, ref.K_TILE)}
+MAX_SPLITS = 8      # blocks of a thread-block cluster (the portable size)
 
 
 def _lib():
@@ -42,16 +44,44 @@ def _split_k(K: int, splits: int, bk: int) -> tuple[int, int]:
     return max(1, -(-K // k_per_split)), k_per_split
 
 
-def split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
-    """(splits, k_per_split) of the K dimension over blockIdx.z.
+def split_plan(M: int, N: int, K: int, sms: int,
+               clusters: Optional[Callable[[int], int]] = None) -> tuple[int, int]:
+    """(splits, k_per_split) of the K dimension over a cluster's blocks.
 
-    Enough splits for about four blocks per SM (five fit at p16: 43 KB of
-    shared memory each), each split a whole number of k tiles. The quire sum
-    is exact, so the split changes no bit of the result.
+    ``clusters(s)`` is how many clusters of ``s`` blocks the card holds at
+    once (the kernel's occupancy query on the card; without one, four
+    blocks an SM). Each split count costs its rounds of clusters (one a
+    tile) times a block's work: its k range plus about four k tiles of fixed
+    work (zeroing the quires, the cluster's sum and readout; fitted to H100
+    timings of the phi3 shapes). The cheapest wins, the fewer splits on a
+    tie. Each split is a whole number of k tiles, at most one cluster of
+    them. The quire sum is exact, so the split changes no bit of the result.
     """
     bm, bn, bk = tile_of(M)
     tiles = -(-N // bn) * -(-M // bm)
-    return _split_k(K, max(1, min(-(-4 * sms // tiles), -(-K // bk), MAX_SPLITS)), bk)
+    if clusters is None:
+        clusters = lambda s: 4 * sms // s  # noqa: E731
+    best = None
+    for s in range(1, min(MAX_SPLITS, max(1, -(-K // bk))) + 1):
+        n_splits, k_per_split = _split_k(K, s, bk)
+        cost = -(-tiles // max(1, clusters(n_splits))) * (k_per_split + 4 * bk)
+        if best is None or cost < best[0]:
+            best = (cost, n_splits, k_per_split)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _card_plan(device: int, M: int, N: int, K: int, a_bits: int,
+               b_bits: int) -> tuple[int, int]:
+    """``split_plan`` with the card's occupancy query, once a shape."""
+    def clusters(splits: int) -> int:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = _lib().posit_quire_gemm_max_clusters(tile_of(M)[0], a_bits, b_bits, splits,
+                                                      ctypes.addressof(out))
+        check_rc(rc, "posit_quire_gemm_max_clusters")
+        return out.value
+    return split_plan(M, N, K, _sm_count(device), clusters)
 
 
 def posit_quire_gemm(
@@ -68,7 +98,8 @@ def posit_quire_gemm(
     es_out); bias (N,) f32; residual (M, N) f32. ``out_fmt`` is a posit
     format (exact readout into it, or f32 readout -> epilogue -> encode when
     there is an epilogue) or F32 (f32 readout -> epilogue). ``splits`` forces
-    the K split count on the card (default: ``split_plan``).
+    the K split count on the card, 1 to ``MAX_SPLITS`` (default:
+    ``split_plan``).
     """
     for name, f in (("a_fmt", a_fmt), ("b_fmt", b_fmt)):
         require(isinstance(f, PositFmt), f"quire GEMM needs a posit {name}, got {f}")
@@ -104,17 +135,16 @@ def posit_quire_gemm(
     if M == 0 or N == 0:
         return out
     if splits is None:
-        n_splits, k_per_split = split_plan(M, N, K, _sm_count(a.device.index or 0))
+        n_splits, k_per_split = _card_plan(a.device.index or 0, M, N, K, a_fmt.nbits,
+                                           b_fmt.nbits)
     else:
-        require(splits >= 1, f"splits must be >= 1, got {splits}")
+        require(1 <= splits <= MAX_SPLITS,
+                f"splits must be in [1, {MAX_SPLITS}] (one cluster), got {splits}")
         n_splits, k_per_split = _split_k(K, splits, tile_of(M)[2])
-    limbs = QuireFmt(max(a_fmt.nbits, b_fmt.nbits)).limbs_axis
-    partial = torch.empty((n_splits, limbs, M * N), dtype=torch.int32, device=a.device)
     rc = _lib().posit_quire_gemm_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
-        partial.data_ptr(),
         M, N, K, a_fmt.nbits, b_fmt.nbits, _OUT_KIND[out_fmt.nbits if posit_out else "f32"],
         es[0], es[1], es[2], _ACT[activation], n_splits, k_per_split, stream_handle(a))
     check_rc(rc, "posit_quire_gemm")

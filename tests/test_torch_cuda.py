@@ -174,8 +174,63 @@ def test_quire_gemm_kernel_bit_exact(dev, M, a_fmt, b_fmt, out_fmt, act):
     assert torch.equal(one, got)
 
 
+def _wide_codes(g, dev, shape, fmt, kind):
+    """Every non-NaR code drawn uniformly (all_codes), or normal values with
+    +-maxpos and +-minpos in the first 32-k chunk of row 0 and column 0
+    (minmax): spans far beyond the kernel's window."""
+    n = fmt.nbits
+    if kind == "all_codes":
+        c = torch.randint(0, (1 << n) - 1, shape, generator=g, device=dev, dtype=torch.int32)
+        return torch.where(c >= 1 << (n - 1), c + 1, c).to(fmt.storage_dtype)
+    c = codec_ops.encode(torch.randn(shape, generator=g, device=dev), fmt.es,
+                         nbits=n).to(torch.int32)
+    edge = torch.tensor([(1 << (n - 1)) - 1, 1, (1 << (n - 1)) + 1, (1 << n) - 1],
+                        dtype=torch.int32, device=dev)
+    c[0, :4] = edge
+    c[:4, 0] = edge.flip(0)[:shape[0]]
+    return c.to(fmt.storage_dtype)
+
+
+@pytest.mark.parametrize("kind", ["all_codes", "minmax"])
+@pytest.mark.parametrize("M,a_fmt,b_fmt,out_fmt,act", [
+    (4, P16_1, P16_1, P16_1, "none"), (8, P16_1, P16_1, F32, "silu"),
+    (4, P8_0, P16_1, F32, "none"), (6, P16_1, P8_3, P16_1, "relu"),
+    (32, P8_3, P8_3, P8_3, "none"), (1, P8_0, P8_0, F32, "gelu")])
+def test_quire_gemm_kernel_wide_span_bit_exact(dev, kind, M, a_fmt, b_fmt, out_fmt, act):
+    """Operands whose scales leave the window: the per-product branch runs
+    beside the chunk sums (p8 at es 0 spans only 12 binades, so there none
+    leave it), bit for bit the plain version at every split."""
+    from repro_torch.kernels.posit_quire_gemm.ref import per_product_share, window
+    K, N = 1000, 301
+    g = torch.Generator(device=dev).manual_seed(M + len(kind))
+    a = _wide_codes(g, dev, (M, K), a_fmt, kind)
+    b = _wide_codes(g, dev, (K, N), b_fmt, kind)
+    epi = act != "none"
+    kw = dict(a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt, activation=act,
+              bias=torch.randn((N,), generator=g, device=dev) if epi else None,
+              residual=torch.randn((M, N), generator=g, device=dev) if epi else None)
+    es = (a_fmt.es, b_fmt.es, getattr(out_fmt, "es", 0))
+    count, _ = per_product_share(a, b, es, a_fmt=a_fmt, b_fmt=b_fmt)
+    wide = any(2 * ((f.nbits - 2) << f.es) > window(f.nbits) for f in (a_fmt, b_fmt))
+    assert (count > 0) == wide
+    as_bits = (lambda t: t.view(torch.int32)) if out_fmt == F32 else (lambda t: t)
+    want = as_bits(posit_quire_gemm_ref(a, b, es, **kw))
+    for splits in (None, 1, 3, 8):
+        assert torch.equal(as_bits(posit_quire_gemm(a, b, es, splits=splits, **kw)), want)
+
+
+def test_quire_gemm_kernel_refuses_splits_past_one_cluster(dev):
+    """K splits over the blocks of one cluster, at most 8: more raise."""
+    a = torch.ones((4, 4096), dtype=torch.uint16, device=dev)
+    b = torch.ones((4096, 64), dtype=torch.uint16, device=dev)
+    with pytest.raises(ValueError):
+        posit_quire_gemm(a, b, (1, 1, 1), a_fmt=P16_1, b_fmt=P16_1, out_fmt=F32, splits=9)
+
+
 def test_quire_gemm_kernel_normalises_past_max_deferred(dev):
-    """K = 20000 in one split: the kernel normalises twice on the way."""
+    """K = 20000 in one split: 157 stages of 128 k, so the kernel
+    normalises its quires once on the way (every 128 stages) besides the
+    final one."""
     g = torch.Generator(device=dev).manual_seed(7)
     a, b = _quire_operands(g, dev, 2, 20000, 40, P16_1, P16_1)
     kw = dict(a_fmt=P16_1, b_fmt=P16_1, out_fmt=P16_1)
