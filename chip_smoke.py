@@ -9,44 +9,62 @@ Phases, in order; any failure raises and the script exits non-zero:
      of qwen2.5-14b (decode and prefill), ragged shapes, p8 at es 0-3, bf16
      weights and p16 weights (the f32-FMA kernels, M = 4 and 64); its
      decode rows bit for bit the same at M = 1, 4 and 8;
+     the GEMM's packed-p8 variants (tensor cores under bf16 compute, f32 FMA
+     under f32) at every qwen2.5-14b linear shape, M = 8 and 64, against
+     the packed plain version and against the unpacked kernel on
+     ``unpack_p8`` of the same codes, their decode rows bit for bit the same
+     at M = 1, 4 and 8;
      the quire GEMM kernel against its plain version, bit for bit, at
      phi3-mini-3.8b's shapes, and against itself unsplit, on Gaussian
      operands and on wide-span ones (every non-NaR code, minpos and maxpos
      in one chunk) that send products through its per-product branch; the
-     share of products that take that branch, per case;
+     share of products that take that branch, per case; the quire GEMM on
+     packed and on unpacked p8 weights, bit for bit the same;
   4. the decode-attention kernel against its plain version (qwen2.5-14b's
      and phi3-mini-3.8b's head shapes); the softmax kernel against its plain
      version (within 1 posit ulp), up to qwen's vocabulary, with a NaR row;
-  5. the reduced qwen2.5-14b (P8_SERVE) and the reduced phi3-mini-3.8b
-     (p16 under the quire) on the card against the same models on the CPU
-     (plain versions). Then three paths, each with every kernel's launch
-     count set to 0 just before it and read just after:
+  5. the reduced qwen2.5-14b (P8_SERVE, and the per-layer presets
+     p8-packed and attn-p16-mlp-p8) and the reduced phi3-mini-3.8b (p16
+     under the quire) on the card against the same models on the CPU (plain
+     versions). Then five paths, each with every kernel's launch count set
+     to 0 just before it and read just after:
      - qwen2.5-14b at full width and depth, random weights from a seed,
        P8_SERVE, 8 requests (prompt 64, gen 16, 4 slots, greedy) through the
        continuous-batching engine;
+     - the same under ``--policy p8-serve --precision-policy
+       attn-p16-mlp-p8``: q/k/v/o at p16_1 on the f32-FMA kernel, gate/up/
+       down and lm_head in packed p8 lanes on the packed tensor-core
+       variant, K/V at p8;
+     - qwen2.5-14b at full width and depth under attn-p16-mlp-p8 over an f32
+       base (``--policy none``), 4 requests (prompt 32, gen 8): the packed
+       lanes on the packed f32-FMA variant;
      - phi3-mini-3.8b at full width and depth under
        weights=p16_1,kv=p16_1,dataflow=quire, 4 requests (prompt 32, gen 8,
        4 slots, greedy): every linear through the quire GEMM;
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
      and a profiled decode step of each served model (the P8_SERVE step
-     must run no split-K epilogue kernel; the quire step one kernel a quire
+     must run no split-K epilogue kernel; the mixed step 192 p16 FMA and 145
+     packed tensor-core GEMM launches; the quire step one kernel a quire
      GEMM call, no readout or split-sum kernel), with the quire step's share
      of per-product-branch products;
   6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call; the GEMM also at
-     every decode and prefill (M = 64) shape of qwen2.5-14b, the quire GEMM
-     at every phi3 decode (M = 4, lm_head included) and prefill (M = 32)
-     shape.
+     every decode and prefill (M = 64) shape of qwen2.5-14b, its packed
+     variants there beside the unpacked kernel, the p16 f32-FMA path at the
+     attention projections' decode shapes, the quire GEMM at every phi3
+     decode (M = 4, lm_head included) and prefill (M = 32) shape.
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
 time from torch.profiler (``time_ms``). kernel_timings.py reuses phase 6's
-GEMM, quire GEMM and softmax timings to compare two checkouts on one card.
+GEMM (packed and p16 included), quire GEMM and softmax timings to compare
+two checkouts on one card.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -94,6 +112,7 @@ DEV = torch.device("cuda")
 QWEN = get_arch("qwen2.5-14b")
 PHI3 = get_arch("phi3-mini-3.8b")
 QUIRE_SPEC = "weights=p16_1,kv=p16_1,dataflow=quire"
+MIXED = "attn-p16-mlp-p8"     # the per-layer preset of the mixed paths
 GEMM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
 PHI3_KN = ((3072, 3072), (3072, 8192), (8192, 3072))
 PHI3_LM_HEAD = (3072, 32064)
@@ -301,6 +320,27 @@ def gemm_plain(a, b, bi, r, kw, chunk=16384):
     return torch.cat(outs, dim=1)
 
 
+def gemm_bound_check(name, got, want, a, bvals, cd, K, bias=None, res=None) -> dict:
+    """The GEMM bound between two f32 results that sum the same products,
+    exact in f32 (bf16 operands, or values rounded once), in other orders:
+    |diff| <= 2*K*u*(|A|@|B| + |bias|) + 8u*(|y| + |res|), with A's values
+    ``a`` rounded to ``cd`` and the weight values ``bvals`` (a callable of a
+    column slice) taken over column blocks. Returns the largest error and
+    its ratio to the bound."""
+    worst, ratio = 0.0, 0.0
+    for n0 in range(0, got.shape[1], 16384):
+        sl = slice(n0, n0 + 16384)
+        scale = torch.matmul(a.to(cd).float().abs(), bvals(sl).abs())
+        if bias is not None:
+            scale = scale + bias[sl].abs()
+        tol = 2 * K * U * scale + 8 * U * (want[:, sl].abs()
+                                            + (res[:, sl].abs() if res is not None else 0))
+        err = (got[:, sl] - want[:, sl]).abs()
+        worst, ratio = max(worst, float(err.max())), max(ratio, float((err / tol).max()))
+    assert ratio <= 1.0, f"{name}: error {worst} exceeds its bound"
+    return {"max_abs_err": worst, "err_over_bound": ratio}
+
+
 def check_gemm() -> dict:
     worst = 0.0
     worst_ratio = 0.0
@@ -317,20 +357,12 @@ def check_gemm() -> dict:
                          bias=bi, residual=r, activation=act, compute_dtype=cd)
         want = gemm_plain(a, b, bi, r, kw)
         if out_fmt == F32:
-            # both sum K f32 products (exact for bf16 operands) in different
-            # orders: |diff| <= 2*K*u*(|A|@|B| + |bias|) + 8u*(|y| + |res|)
-            absab = torch.cat([
-                torch.matmul(operand_values(a, a_fmt).to(cd).float().abs(),
-                             operand_values(b[:, n0:n0 + 16384].contiguous(), b_fmt).abs())
-                for n0 in range(0, N, 16384)], dim=1)
-            scale = absab + (bi.abs() if bi is not None else 0.0)
-            tol = 2 * K * U * scale + 8 * U * (want.abs() + (r.abs() if r is not None else 0))
-            err = (got - want).abs()
-            ratio = float((err / tol).max())
-            assert ratio <= 1.0, f"GEMM {name}: error {float(err.max())} exceeds its bound"
-            worst = max(worst, float(err.max()))
-            worst_ratio = max(worst_ratio, ratio)
-            rows.append({"case": name, "max_abs_err": float(err.max()), "err_over_bound": ratio})
+            c = gemm_bound_check(
+                f"GEMM {name}", got, want, operand_values(a, a_fmt),
+                lambda sl: operand_values(b[:, sl].contiguous(), b_fmt), cd, K, bi, r)
+            worst = max(worst, c["max_abs_err"])
+            worst_ratio = max(worst_ratio, c["err_over_bound"])
+            rows.append({"case": name, **c})
         else:
             # posit out: the f32 sums may round to neighbouring codes
             n = out_fmt.nbits
@@ -342,6 +374,91 @@ def check_gemm() -> dict:
     torch.cuda.empty_cache()
     DETAILS["gemm_checks"] = rows
     return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio}
+
+
+def check_packed_gemm() -> dict:
+    """The packed-p8 variants as the layers call them (f32 activations,
+    packed p8_0 lanes, the epilogue of each projection): tensor cores under
+    bf16 compute, f32 FMA under f32, at every qwen2.5-14b linear shape at
+    M = 8 and 64, each against the packed plain version and against the
+    unpacked kernel on ``unpack_p8`` of the same codes (``check_gemm``'s
+    bound), its rows at M = 1 and 4 bit for bit rows of M = 8, and every
+    launch counted under its own variant."""
+    # imported here: kernel_timings.py imports this module with older packages
+    from repro_torch.core.pack import pack_p8, unpack_p8
+
+    rows, worst, worst_ratio, differing = [], 0.0, 0.0, 0
+    for cd, counter in ((torch.bfloat16, "posit_gemm_packed"),
+                        (torch.float32, "posit_gemm_packed_fma")):
+        for M in (8, 64):
+            for K, N in GEMM_KN:
+                bias = (K, N) in ((5120, 5120), (5120, 1024))
+                act = "silu" if (K, N) == (5120, 13824) else "none"
+                res = (K, N) in ((13824, 5120), (5120, 5120))
+                a, b, bi, r = make_gemm_inputs(M, K, N, P8_0, torch.float32, bias, res, seed=12)
+                bp = pack_p8(b)
+                del b
+                kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation=act,
+                          compute_dtype=cd)
+                before = dict(kernels.LAUNCHES)
+                got = posit_gemm(a, bp, (0, 0, 0), bias=bi, residual=r, b_packed=True, **kw)
+                assert kernels.LAUNCHES[counter] == before[counter] + 1, counter
+                assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"]
+                b = unpack_p8(bp, K).contiguous()
+                unpacked = posit_gemm(a, b, (0, 0, 0), bias=bi, residual=r, **kw)
+                plain = torch.cat([
+                    posit_gemm_ref(a, bp[:, n0:n0 + 16384].contiguous(), (0, 0, 0),
+                                   bias=None if bi is None else bi[n0:n0 + 16384],
+                                   residual=None if r is None else r[:, n0:n0 + 16384]
+                                   .contiguous(), b_packed=True, **kw)
+                    for n0 in range(0, N, 16384)], dim=1)
+
+                def bvals(sl):
+                    return codec_ops.decode(b[:, sl].contiguous(), 0, nbits=8)
+
+                name = f"packed {'tc' if cd == torch.bfloat16 else 'fma'} M{M} {K}x{N}"
+                row = {"case": name}
+                for ref_name, want in (("plain", plain), ("unpacked_kernel", unpacked)):
+                    c = gemm_bound_check(f"{name} vs {ref_name}", got, want, a, bvals, cd, K,
+                                         bi, r)
+                    row[ref_name] = c
+                    worst = max(worst, c["max_abs_err"])
+                    worst_ratio = max(worst_ratio, c["err_over_bound"])
+                if M == 8:
+                    full = bits(got)
+                    for m in (1, 4):
+                        part = posit_gemm(a[:m].contiguous(), bp, (0, 0, 0), bias=bi,
+                                          residual=None if r is None else r[:m].contiguous(),
+                                          b_packed=True, **kw)
+                        differing += int((bits(part) != full[:m]).sum())
+                rows.append(row)
+                del a, b, bp, bi, r, got, unpacked, plain
+            torch.cuda.empty_cache()
+    assert differing == 0, f"packed GEMM decode rows depend on the batch: {differing} differ"
+    DETAILS["packed_gemm_checks"] = rows
+    return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio,
+            "rows": (1, 4, 8), "differing_values": differing}
+
+
+def check_quire_packed() -> dict:
+    """The quire GEMM through its front door on packed p8 weights gives the
+    bits of the same codes unpacked (the quire's sum does not depend on the
+    layout): phi3's gate/up shape at M = 4 and an odd K at M = 13, p16 and
+    p8 activations."""
+    # imported here: kernel_timings.py imports this module with older packages
+    from repro_torch.core.pack import pack_p8
+    from repro_torch.core.pcsr import OperandSlots
+
+    cases = []
+    for M, K, N, a_fmt in ((4, 3072, 8192, P16_1), (13, 1001, 301, P8_2)):
+        a, b, _, _ = make_quire_inputs(M, K, N, a_fmt, P8_0, False, False, seed=21)
+        slots = OperandSlots(rs1=a_fmt, rs2=P8_0, rd=F32, dataflow="quire")
+        got = quire_ops.quire_gemm(a, pack_p8(b), slots.with_packed())
+        want = quire_ops.quire_gemm(a, b, slots)
+        mismatches = int((_as_bits(got) != _as_bits(want)).sum())
+        assert mismatches == 0, f"quire packed M{M} {K}x{N}: {mismatches} outputs differ"
+        cases.append(f"M{M} {K}x{N} {a_fmt.name} x packed p8_0")
+    return {"cases": cases, "mismatches": 0}
 
 
 def quire_cases():
@@ -557,9 +674,11 @@ def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05) -> dict:
     """A reduced model: the card's kernels against the CPU's plain versions,
     same seed-made weights, prefill + 4 greedy decode steps. Bounds: P8_SERVE
     rounds activations to bf16 and K/V to p8, where one flipped rounding
-    moves logits ~1e-2 (0.05); under the quire every linear is exact, but
-    f32 norms, attention and silu in another order can move a p16
-    activation or K/V code by one ulp (2^-13), ~1e-3 on a logit (2e-3)."""
+    moves logits ~1e-2 (0.05), and so do the per-layer presets p8-packed
+    (bf16 compute) and attn-p16-mlp-p8 (p16 and packed-p8 weights, 0.05);
+    under the quire every linear is exact, but f32 norms, attention and silu
+    in another order can move a p16 activation or K/V code by one ulp
+    (2^-13), ~1e-3 on a logit (2e-3)."""
     cfg = arch.reduced()
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     params_cpu = cpu_model.init(0, policy)
@@ -582,8 +701,8 @@ def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05) -> dict:
         tok = lc.argmax(-1).to(torch.int32)
         lc, cc = cpu_model.decode_step(params_cpu, tok, cc, policy)
         lg, cg = gpu_model.decode_step(params_gpu, tok.to(DEV), cg, policy)
-    return {"arch": cfg.name, "max_logit_err": worst, "bound": bound, "greedy_agree": agree,
-            "margin_clear": clear}
+    return {"arch": cfg.name, "policy": policy.describe(), "max_logit_err": worst,
+            "bound": bound, "greedy_agree": agree, "margin_clear": clear}
 
 
 def _to(tree, device):
@@ -611,6 +730,57 @@ def run_main_path() -> tuple[dict, dict]:
     assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the main path"
     assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
     DETAILS["serve_events"] = events
+    return report, launches
+
+
+def run_mixed_path() -> tuple[dict, dict]:
+    """qwen2.5-14b at full width and depth under ``--policy p8-serve
+    --precision-policy attn-p16-mlp-p8``: the attention projections at p16
+    on the unpacked kernel's f32-FMA datapath, the MLP and lm_head in packed
+    p8 lanes on the packed tensor-core variant, K/V at p8. The packed f32-FMA
+    variant must not launch."""
+    events = []
+    kernels.reset_launches()
+    report = serve("qwen2.5-14b", policy="p8-serve", precision_policy=MIXED, max_slots=4,
+                   requests=8, prompt_len=64, gen=16, seed=0, device="cuda",
+                   emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in ("posit_gemm", "posit_gemm_packed", "posit_encode", "posit_attention"):
+        assert launches[name] > 0, f"kernel {name} was not launched on the mixed path"
+    assert launches["posit_gemm_packed_fma"] == 0, "the packed FMA variant ran on bf16 compute"
+    assert report["requests"] == 8, report["requests"]
+    assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the mixed path"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
+    # attention at 2 bytes a weight, MLP and head at 1, against 4 in f32
+    c = QWEN
+    attn_n = c.d_model * (2 * c.n_heads * c.hd + 2 * c.n_kv * c.hd)
+    mlp_n = 3 * c.d_model * c.d_ff
+    want = c.n_layers * (2 * attn_n + mlp_n) + c.d_model * c.vocab
+    assert report["weight_bytes_policy"] == want, (report["weight_bytes_policy"], want)
+    DETAILS["mixed_serve_events"] = events
+    return report, launches
+
+
+def run_mixed_fma_path() -> tuple[dict, dict]:
+    """qwen2.5-14b at full width and depth under ``--policy none
+    --precision-policy attn-p16-mlp-p8`` (f32 compute, f32 KV cache): the
+    packed lanes on the packed f32-FMA variant, the tensor-core one idle."""
+    events = []
+    kernels.reset_launches()
+    report = serve("qwen2.5-14b", policy="none", precision_policy=MIXED, max_slots=4,
+                   requests=4, prompt_len=32, gen=8, seed=0, device="cuda",
+                   emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in ("posit_gemm", "posit_gemm_packed_fma", "posit_attention"):
+        assert launches[name] > 0, f"kernel {name} was not launched on the mixed f32 path"
+    assert launches["posit_gemm_packed"] == 0, "the packed tensor-core variant ran on f32"
+    assert report["requests"] == 4, report["requests"]
+    assert all(n == 8 for n in report["completion_tokens"].values()), report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the mixed f32 path"
+    DETAILS["mixed_fma_serve_events"] = events
     return report, launches
 
 
@@ -657,9 +827,10 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
                    share: bool = False) -> dict:
     """Where a decode step's time goes: the full model at 4 busy slots, a
     few steps under torch.profiler (device time by kernel name, and the
-    device-busy share of the window), plus the step time without it. With
-    ``share``, one more step records the share of the quire GEMM's
-    products that took its per-product branch (not timed)."""
+    device-busy share of the window), plus the step time without it, the
+    wrappers' launches a step and the GEMM kernels a step by datapath and B
+    kind. With ``share``, one more step records the share of the quire
+    GEMM's products that took its per-product branch (not timed)."""
     from torch.profiler import ProfilerActivity, profile
 
     model = build_model(arch)
@@ -677,13 +848,14 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
     t0 = time.perf_counter()
-    quire_before = kernels.LAUNCHES["posit_quire_gemm"]
+    before = dict(kernels.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
     window_us = (time.perf_counter() - t0) * 1e6
-    quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - quire_before
+    step_launches = {k: (kernels.LAUNCHES[k] - before[k]) / steps for k in before}
+    quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - before["posit_quire_gemm"]
     shares = quire_step_share(eng) if share else None
     # kernels only: the aten::* rows repeat their kernels' device time
     by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
@@ -691,6 +863,15 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
                      key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
     epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
+    # the GEMM's datapaths by kernel name: tensor cores, and the f32-FMA
+    # decode (M <= 8) and tile kernels; the packed variants are the
+    # templates whose B kind is 4
+    variants = {}
+    for n, _, c in by_name:
+        m = re.search(r"(tc_gemm_kernel|gemv_kernel|gemm_kernel)<(\d+), (\d+)", n)
+        if m:
+            key = f"{m.group(1)} B kind {m.group(3)}"
+            variants[key] = variants.get(key, 0) + c / steps
     quire_kernels = sum(c for n, _, c in by_name if "quire" in n)
     quire_readouts = sum(c for n, _, c in by_name if "quire" in n and "readout" in n)
     del eng, params, model
@@ -702,6 +883,8 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
             "device_busy_us_per_step": busy_per_step_us,
             "splitk_epilogue_calls_per_step": epilogue_calls / steps,
             "quire_gemm_calls_per_step": quire_calls / steps,
+            "launches_per_step": step_launches,
+            "gemm_kernels_per_step": variants,
             "quire_kernels_per_step": quire_kernels / steps,
             "quire_readout_kernels_per_step": quire_readouts / steps,
             "quire_per_product_share": shares,
@@ -759,6 +942,70 @@ def gemm_timings(M: int, shapes, plain: bool = False) -> list:
             rows[-1]["plain_ms"] = time_ms(lambda: gemm_plain(a, b, None, None, kw),
                                            windows=3, calls=1)
         del a, b, wdec, a16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def packed_timings(M: int, shapes, cd=torch.bfloat16, plain: bool = False) -> list:
+    """The packed variant of ``cd`` (tensor cores for bf16, f32 FMA for f32)
+    as the layers call it (f32 activations, packed p8_0 lanes, f32 out) at M
+    rows: device ms beside the unpacked kernel on the same codes, the bound
+    (the unpacked kernel's: a packed code is one byte too), and one
+    torch.matmul in ``cd`` on the weight decoded once (by the kernel, outside
+    the timing); the plain version's ms if asked."""
+    # imported here: kernel_timings.py imports this module with older packages
+    from repro_torch.core.pack import pack_p8
+
+    rows = []
+    for K, N in shapes:
+        a, b, _, _ = make_gemm_inputs(M, K, N, P8_0, torch.float32, False, False, seed=4)
+        bp = pack_p8(b)
+        kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, compute_dtype=cd)
+        ms = time_ms(lambda: posit_gemm(a, bp, (0, 0, 0), b_packed=True, **kw))
+        unpacked = time_ms(lambda: posit_gemm(a, b, (0, 0, 0), **kw))
+        wdec = codec_ops.decode(b, 0, nbits=8, out_dtype=cd)
+        ac = a.to(cd)
+        lib = time_ms(lambda: torch.matmul(ac, wdec))
+        nbytes = a.numel() * 4 + b.numel() + M * N * 4
+        rows.append({"M": M, "K": K, "N": N, "compute": str(cd).split(".")[-1], "ms": ms,
+                     "unpacked_ms": unpacked, "library_ms": lib, "bytes": nbytes,
+                     "bound_ms": bound_ms(nbytes, 2 * M * K * N,
+                                          "bf16" if cd == torch.bfloat16 else "f32")[0]})
+        if plain:
+            rows[-1]["plain_ms"] = time_ms(
+                lambda: posit_gemm_ref(a, bp, (0, 0, 0), b_packed=True, **kw),
+                windows=3, calls=1)
+        del a, b, bp, wdec, ac
+        torch.cuda.empty_cache()
+    return rows
+
+
+P16_KN = ((5120, 5120), (5120, 1024))   # the attention projections' shapes
+
+
+def p16_timings(M: int = 4, shapes=P16_KN, plain: bool = False) -> list:
+    """The unpacked kernel on p16_1 weights, the f32-FMA decode kernel at M
+    <= 8: bf16 compute as the mixed path calls it (A and the decoded weight
+    rounded to bf16, f32 sums), and f32 compute; beside the bound and one
+    torch.matmul f32 (TF32 off) on the weight decoded once."""
+    rows = []
+    for K, N in shapes:
+        a, b, _, _ = make_gemm_inputs(M, K, N, P16_1, torch.float32, False, False, seed=6)
+        kw = dict(a_fmt=F32, b_fmt=P16_1, out_fmt=F32)
+        ms = time_ms(lambda: posit_gemm(a, b, (0, 1, 0), compute_dtype=torch.bfloat16, **kw))
+        ms_f32 = time_ms(lambda: posit_gemm(a, b, (0, 1, 0), compute_dtype=torch.float32,
+                                            **kw))
+        wdec = codec_ops.decode(b, 1, nbits=16)
+        lib = time_ms(lambda: torch.matmul(a, wdec))
+        nbytes = a.numel() * 4 + b.numel() * 2 + M * N * 4
+        rows.append({"M": M, "K": K, "N": N, "ms": ms, "f32_compute_ms": ms_f32,
+                     "library_ms": lib, "bytes": nbytes,
+                     "bound_ms": bound_ms(nbytes, 2 * M * K * N, "f32")[0]})
+        if plain:
+            rows[-1]["plain_ms"] = time_ms(
+                lambda: posit_gemm_ref(a, b, (0, 1, 0), compute_dtype=torch.bfloat16, **kw),
+                windows=3, calls=1)
+        del a, b, wdec
         torch.cuda.empty_cache()
     return rows
 
@@ -849,6 +1096,21 @@ def time_kernels(launches: dict, errs: dict) -> list:
                 sh["bytes"], 2 * 4 * sh["K"] * sh["N"], "bf16", sh["library_ms"])
     DETAILS["gemm_decode_shapes"] = shapes
     DETAILS["gemm_prefill_shapes"] = gemm_timings(64, GEMM_KN[:-1])
+    # the packed variants: the gate/up projection at 4 slots, tensor cores
+    # (bf16 compute, the mixed path's) and f32 FMA; every decode and prefill
+    # shape beside the unpacked kernel goes to the details
+    for cd, name in ((torch.bfloat16, "posit_gemm_packed"),
+                     (torch.float32, "posit_gemm_packed_fma")):
+        shapes = packed_timings(4, GEMM_KN, cd, plain=True)
+        for sh in shapes:
+            if (sh["K"], sh["N"]) == (5120, 13824):
+                row(name, "src/repro_torch/csrc/posit_gemm.cu",
+                    "src/repro/kernels/posit_gemm/posit_gemm.py:68", sh["ms"], sh["plain_ms"],
+                    sh["bytes"], 2 * 4 * sh["K"] * sh["N"],
+                    "bf16" if cd == torch.bfloat16 else "f32", sh["library_ms"])
+        DETAILS[f"{name}_decode_shapes"] = shapes
+        DETAILS[f"{name}_prefill_shapes"] = packed_timings(64, GEMM_KN[:-1], cd)
+    DETAILS["gemm_p16_decode_shapes"] = p16_timings(plain=True)
     # attention: a decode step of the main path, 4 slots at S_max = 80 (all full)
     q, k, v, lens = attn_inputs(8, S=80, lengths=(80, 80, 80, 80), seed=5)
     kd = codec_ref.decode_ref(k, 0, nbits=8).repeat_interleave(5, dim=1)
@@ -914,13 +1176,22 @@ def main() -> int:
     gemm_res = check_gemm()
     log("gemm", **gemm_res)
     log("gemm_batch_invariance", **check_gemm_batch_invariance())
+    packed_res = check_packed_gemm()
+    log("packed_gemm", **packed_res)
     quire_res = check_quire_gemm()
     log("quire_gemm", **quire_res)
+    log("quire_gemm_packed", **check_quire_packed())
     attn_res = check_attention()
     log("attention", **attn_res)
     softmax_res = check_softmax()
     log("softmax", **softmax_res)
+    from repro_torch.core.policy import get_precision_policy
+
+    mixed_policy = get_precision_policy(MIXED, base=P8_SERVE)
     log("reduced_model", **check_small_model())
+    for name in ("p8-packed", MIXED):
+        log("reduced_model_" + name, **check_small_model(QWEN, get_precision_policy(name)))
+    log("reduced_model_" + MIXED + "_p8_serve", **check_small_model(QWEN, mixed_policy))
     log("reduced_model_quire", **check_small_model(PHI3, parse_policy(QUIRE_SPEC), 2e-3))
 
     keys = ("arch", "requests", "tokens", "decode_tok_per_s", "p50_token_ms", "p95_token_ms",
@@ -931,6 +1202,19 @@ def main() -> int:
     log("main_path", seconds=time.perf_counter() - t0, launches=launches,
         **{k: report[k] for k in keys})
     DETAILS["serve_report"] = report
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    m_report, m_launches = run_mixed_path()
+    log("mixed_path", seconds=time.perf_counter() - t0, launches=m_launches,
+        **{k: m_report[k] for k in keys + ("weight_bytes_policy", "weight_bytes_f32")})
+    DETAILS["mixed_serve_report"] = m_report
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    f_report, f_launches = run_mixed_fma_path()
+    log("mixed_f32_path", seconds=time.perf_counter() - t0, launches=f_launches,
+        **{k: f_report[k] for k in keys[:-1] + ("weight_bytes_policy", "weight_bytes_f32")})
+    DETAILS["mixed_f32_serve_report"] = f_report
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     q_report, q_launches = run_quire_path()
     log("quire_path", seconds=time.perf_counter() - t0, launches=q_launches,
@@ -943,6 +1227,17 @@ def main() -> int:
     assert prof["splitk_epilogue_calls_per_step"] == 0, \
         "the P8_SERVE decode step still launches a split-K epilogue kernel"
     DETAILS["decode_profile"] = prof
+    m_prof = profile_decode(QWEN, mixed_policy)
+    log("profile_mixed", **{k: v for k, v in m_prof.items() if k != "top"})
+    # q/k/v/o of 48 layers at p16 on the f32-FMA decode kernel; gate/up/down
+    # of 48 layers and lm_head on the packed tensor-core variant
+    assert m_prof["launches_per_step"]["posit_gemm"] == 4 * QWEN.n_layers, m_prof
+    assert m_prof["launches_per_step"]["posit_gemm_packed"] == 3 * QWEN.n_layers + 1, m_prof
+    assert m_prof["gemm_kernels_per_step"].get("gemv_kernel B kind 3") == 4 * QWEN.n_layers, \
+        m_prof["gemm_kernels_per_step"]
+    assert m_prof["gemm_kernels_per_step"].get("tc_gemm_kernel B kind 4") == \
+        3 * QWEN.n_layers + 1, m_prof["gemm_kernels_per_step"]
+    DETAILS["mixed_decode_profile"] = m_prof
     q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32, share=True)
     log("profile_quire", **{k: v for k, v in q_prof.items() if k != "top"})
     assert q_prof["quire_readout_kernels_per_step"] == 0, \
@@ -955,11 +1250,16 @@ def main() -> int:
     errs = {"posit_encode": codec_res["encode_max_abs_err"],
             "posit_decode": codec_res["decode_max_abs_err"],
             "posit_gemm": gemm_res["max_abs_err"], "posit_attention": attn_res["max_abs_err"],
+            "posit_gemm_packed": packed_res["max_abs_err"],
+            "posit_gemm_packed_fma": packed_res["max_abs_err"],
             "posit_quire_gemm": quire_res["max_abs_err"],
             "posit_softmax": softmax_res["max_abs_err"]}
-    DETAILS["path_launches"] = {"p8_serve": launches, "quire": q_launches,
+    DETAILS["path_launches"] = {"p8_serve": launches, "mixed": m_launches,
+                                "mixed_f32": f_launches, "quire": q_launches,
                                 "softmax": sm_launches}
-    launches = dict(launches, posit_quire_gemm=q_launches["posit_quire_gemm"],
+    launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
+                    posit_gemm_packed_fma=f_launches["posit_gemm_packed_fma"],
+                    posit_quire_gemm=q_launches["posit_quire_gemm"],
                     posit_softmax=sm_launches["posit_softmax"])
     rows = time_kernels(launches, errs)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

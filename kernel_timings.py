@@ -10,7 +10,11 @@ parent) in one call on one card to compare two versions. It builds that
 package's codec, GEMM, quire GEMM and softmax kernels, then times, with
 chip_smoke.py's phase-6 functions: the GEMM at every qwen2.5-14b decode
 (M = 4) and prefill (M = 64, no lm_head) shape beside its bound and
-torch.matmul bf16 on the decoded weight; the quire GEMM at every
+torch.matmul bf16 on the decoded weight; where the package has them, the
+packed-p8 variants (tensor cores and f32 FMA) at the same shapes beside the
+unpacked kernel and torch.matmul in their compute dtype, and the p16
+f32-FMA path at the attention projections' decode shapes beside
+torch.matmul f32 (TF32 off); the quire GEMM at every
 phi3-mini-3.8b decode (M = 4, lm_head 3072 x 32064 included) and prefill
 (M = 32) shape beside its bound (bytes, or one int8 tensor-core MAC a
 product) and a per-product loop's floor (4 int32 operations a product); and
@@ -48,13 +52,19 @@ def main() -> int:
     res = {"src": str(src), "build_seconds": seconds,
            "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),
            "gemm_prefill": smoke.gemm_timings(64, smoke.GEMM_KN[:-1]),
-           "quire_decode": smoke.quire_timings(4, smoke.PHI3_KN + (smoke.PHI3_LM_HEAD,)),
-           "quire_prefill": smoke.quire_timings(32, smoke.PHI3_KN),
-           "softmax": smoke.softmax_timings(),
-           "profiler_empty_windows": smoke.DETAILS.get("profiler_empty_windows", 0),
-           "nvidia_smi": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                         "--format=csv,noheader"], capture_output=True,
-                                        text=True, check=True).stdout.strip()}
+           "gemm_p16_decode": smoke.p16_timings()}
+    if (src / "repro_torch" / "core" / "pack.py").exists():   # packages with packed lanes
+        for cd, name in ((torch.bfloat16, "packed_tc"), (torch.float32, "packed_fma")):
+            res[f"{name}_decode"] = smoke.packed_timings(4, smoke.GEMM_KN, cd)
+            res[f"{name}_prefill"] = smoke.packed_timings(64, smoke.GEMM_KN[:-1], cd)
+    res.update(
+        quire_decode=smoke.quire_timings(4, smoke.PHI3_KN + (smoke.PHI3_LM_HEAD,)),
+        quire_prefill=smoke.quire_timings(32, smoke.PHI3_KN),
+        softmax=smoke.softmax_timings(),
+        profiler_empty_windows=smoke.DETAILS.get("profiler_empty_windows", 0),
+        nvidia_smi=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True, text=True,
+                                  check=True).stdout.strip())
     print(json.dumps({"timings": res}))
     return 0
 

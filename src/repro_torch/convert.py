@@ -2,9 +2,11 @@
 
 ``params_from_jax`` takes the reference's parameter tree with its leaves as
 numpy arrays (``jax.tree.map(np.asarray, params)``), float or after the
-reference's ``quantize_params``. Codes stay codes and floats stay floats,
-with no rounding on the way; the stacked ``blocks`` axis becomes a list of
-per-layer dicts.
+reference's ``quantize_params`` (per-layer precision policies included).
+Codes stay codes and floats stay floats, with no rounding on the way: a
+stacked ``w_packed`` of packed p8 lanes, (L, ceil(K/2), N) uint16, becomes
+each layer's (ceil(K/2), N) uint16 bit for bit. The stacked ``blocks`` axis
+becomes a list of per-layer dicts.
 """
 from __future__ import annotations
 

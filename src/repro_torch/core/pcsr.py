@@ -52,6 +52,9 @@ class OperandSlots:
         return cls(rs1=fmt, rs2=fmt, rs3=fmt, rd=fmt, dataflow=dataflow,
                    codec_impl=codec_impl)
 
+    def with_packed(self, rs2_packed: bool = True) -> "OperandSlots":
+        return dataclasses.replace(self, rs2_packed=rs2_packed)
+
 
 ROLES = (
     "weights", "activations", "gradients", "kv_cache", "optimizer",

@@ -51,6 +51,13 @@ class PositFmt:
     def storage_dtype(self) -> torch.dtype:
         return torch.uint8 if self.nbits == 8 else torch.uint16
 
+    @property
+    def storage_bytes(self) -> int:
+        return self.nbits // 8
+
+    def with_es(self, es: int) -> "PositFmt":
+        return PositFmt(self.nbits, es)
+
 
 @dataclasses.dataclass(frozen=True)
 class FloatFmt:

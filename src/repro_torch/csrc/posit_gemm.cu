@@ -1,7 +1,16 @@
 // Fused posit GEMM: O = encode(act(decode(A) @ decode(B) + bias) + residual).
 //
 // Replaces: src/repro/kernels/posit_gemm/posit_gemm.py, `posit_gemm` (Pallas
-// body `_gemm_kernel`), unpacked operands, codec "bits".
+// body `_gemm_kernel`), both of its branches: unpacked operands, and packed
+// p8 B (`b_packed`, :68-98), which arrives as (ceil(K/2), N) uint16 split-K
+// lanes (repro_torch/core/pack.py: word (r, c) holds code (r, c) in its low
+// byte and code (r + Kh, c) in its high byte, Kh = ceil(K/2)). Either way
+//   A @ decode(B) == A[:, :Kh] @ decode(lo) + A[:, Kh:] @ decode(hi),
+// then the fused epilogue and the encode. The reference's `codec_impl`
+// ("lut" feeds the Pallas body a (4, 256) table, "bits" the pipeline) does
+// not reach these kernels: they decode p8 through tables they build with the
+// bit pipeline, which is bit-exact either way (on the TPU the reference
+// always runs "bits"); the plain version on the CPU honours the knob.
 //
 // Bound on the H100, at the serving shapes: device-memory bytes. A decode step
 // multiplies M = 1..8 activation rows into a (K, N) weight of p8 codes, so each
@@ -53,6 +62,19 @@
 //   above. K splits over blockIdx.z into f32 partials that a second kernel
 //   sums in split order before the epilogue.
 //
+// Packed p8 B (kind kP8x2) takes both datapaths, walking the Kh packed rows:
+// * tensor cores: a ring stage holds 64 packed rows x 128 columns (16 KB, 8
+//   for p8) and two A slices, columns [k0, k0+64) and [Kh+k0, Kh+k0+64)
+//   (the high slice zero past K for odd K). A lane's 16-byte row splits into
+//   its low and high bytes with __byte_perm, and each half goes through the
+//   p8 table into the fragments of one set of MMAs, so a packed stage is two
+//   stages of MMAs. The ring keeps 2 stages for the 8-row tile (two blocks an
+//   SM) and 3 for the 64-row tile, to fit shared memory with B's doubled share.
+// * f32 FMA: each uint16 word decodes into two codes, which multiply A[m, r]
+//   and A[m, r + Kh].
+// The plan (kernels/posit_gemm/ops.py) walks Kh rows, so a decode row's sum
+// order still does not depend on M <= 8.
+//
 // The epilogue (bias, activation, residual, posit encode or float store)
 // runs in registers on both paths.
 #include "posit_codec.cuh"
@@ -64,6 +86,9 @@ using posit::kF32;
 using posit::kP16;
 using posit::kP8;
 
+// Storage kind of a packed p8 B: two codes a uint16 word, split-K lanes.
+constexpr int kP8x2 = 4;
+
 struct GemmArgs {
   const void* a;
   const void* b;
@@ -74,6 +99,7 @@ struct GemmArgs {
                           // (grid, 2, BM, 128), a block's first and last part
   int* counters;          // tensor cores: one zeroed counter per output tile
   int M, N, K;
+  int kb;  // rows of B: K, or Kh = ceil(K / 2) packed rows
   int es_a, es_b, es_out;
   int out_kind;  // posit::Kind of the output
   int act;
@@ -105,24 +131,39 @@ __device__ __forceinline__ float to_compute(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// Element (k, n) of B as float32, two lanes for a packed B (lo: row k, hi:
+// row k + Kh), through the block's p8 table `tab`.
+template <int KB>
+__device__ __forceinline__ void load_b(const void* b, long long i, int es, const float* tab,
+                                       float (&v)[KB == kP8x2 ? 2 : 1]) {
+  if constexpr (KB == kP8x2) {
+    const uint32_t w = static_cast<const uint16_t*>(b)[i];
+    v[0] = tab[w & 255u];
+    v[1] = tab[w >> 8];
+  } else {
+    v[0] = posit::load_elem<KB>(b, i, es, tab);
+  }
+}
+
 template <int KA, int KB, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 gemm_kernel(GemmArgs g) {
   constexpr int NT = (BM / TM) * (BN / TN);
   constexpr int TX = BN / TN;
-  __shared__ __align__(16) float As[BK][BM];
-  __shared__ __align__(16) float Bs[BK][BN];
+  constexpr int NL = KB == kP8x2 ? 2 : 1;  // lanes of a B word
+  __shared__ __align__(16) float As[NL][BK][BM];
+  __shared__ __align__(16) float Bs[NL][BK][BN];
   __shared__ float tab_a[KA == kP8 ? 256 : 1];
-  __shared__ float tab_b[KB == kP8 ? 256 : 1];
+  __shared__ float tab_b[KB == kP8 || KB == kP8x2 ? 256 : 1];
   const int tid = threadIdx.x;
   if constexpr (KA == kP8) posit::fill_p8_table(tab_a, g.es_a, tid, NT);
-  if constexpr (KB == kP8) posit::fill_p8_table(tab_b, g.es_b, tid, NT);
+  if constexpr (KB == kP8 || KB == kP8x2) posit::fill_p8_table(tab_b, g.es_b, tid, NT);
   __syncthreads();
 
   const int tx = tid % TX, ty = tid / TX;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int k_begin = blockIdx.z * g.k_per_split;
-  const int k_end = min(g.K, k_begin + g.k_per_split);
+  const int k_end = min(g.kb, k_begin + g.k_per_split);
   float acc[TM][TN];
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -133,33 +174,43 @@ gemm_kernel(GemmArgs g) {
     for (int i = tid; i < BM * BK; i += NT) {
       const int r = i / BK, c = i % BK;
       const int m = m0 + r, k = k0 + c;
-      float v = 0.0f;
-      if (m < g.M && k < k_end)
-        v = to_compute(posit::load_elem<KA>(g.a, static_cast<long long>(m) * g.K + k, g.es_a, tab_a),
-                       g.bf16_compute);
-      As[c][r] = v;
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {
+        // lane l reads A's column l * Kh + k (the high half: zero past K)
+        float v = 0.0f;
+        if (m < g.M && k < k_end && l * g.kb + k < g.K)
+          v = to_compute(posit::load_elem<KA>(g.a, static_cast<long long>(m) * g.K +
+                                                       l * g.kb + k, g.es_a, tab_a),
+                         g.bf16_compute);
+        As[l][c][r] = v;
+      }
     }
     for (int i = tid; i < BK * BN; i += NT) {
       const int r = i / BN, c = i % BN;
       const int k = k0 + r, n = n0 + c;
-      float v = 0.0f;
-      if (k < k_end && n < g.N)
-        v = to_compute(posit::load_elem<KB>(g.b, static_cast<long long>(k) * g.N + n, g.es_b, tab_b),
-                       g.bf16_compute);
-      Bs[r][c] = v;
+      float v[NL];
+#pragma unroll
+      for (int l = 0; l < NL; ++l) v[l] = 0.0f;
+      if (k < k_end && n < g.N) load_b<KB>(g.b, static_cast<long long>(k) * g.N + n, g.es_b,
+                                           tab_b, v);
+#pragma unroll
+      for (int l = 0; l < NL; ++l) Bs[l][r][c] = to_compute(v[l], g.bf16_compute);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float av[TM], bv[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
+      for (int l = 0; l < NL; ++l) {
+        float av[TM], bv[TN];
 #pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
+        for (int i = 0; i < TM; ++i) av[i] = As[l][kk][ty * TM + i];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int j = 0; j < TN; ++j) bv[j] = Bs[l][kk][tx * TN + j];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
     }
     __syncthreads();
   }
@@ -186,22 +237,33 @@ gemm_kernel(GemmArgs g) {
 // coalesced 256-column read. A warp issues the loads of several rows before
 // it uses any of them; each B element is decoded once and used for all M
 // rows, whose A slice sits in shared memory. The warps' sums meet in shared
-// memory in warp order.
+// memory in warp order. A packed row's two codes meet A's columns r and
+// r + Kh, both staged (half as many k a chunk).
 constexpr int kGvThreads = 256;
 constexpr int kGvWarps = kGvThreads / 32;
 constexpr int kGvVec = 8;                 // columns per lane
 constexpr int kGvCols = 32 * kGvVec;      // columns per block
 constexpr int kGvKChunk = 1024;           // k of A staged at a time
 
-// kGvVec consecutive B values of one row as float32, one vector load.
+// kGvVec consecutive B values of one row as float32, one vector load; a
+// packed row gives its low lane in v[0..7] and its high lane in v[8..15].
 template <int KB>
-__device__ __forceinline__ void load_row(const void* b, long long off, float (&v)[kGvVec],
+__device__ __forceinline__ void load_row(const void* b, long long off,
+                                         float (&v)[KB == kP8x2 ? 2 * kGvVec : kGvVec],
                                          const float* tab, int es) {
   if constexpr (KB == kP8) {
     const uint2 r = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(b) + off);
     const uint8_t* c = reinterpret_cast<const uint8_t*>(&r);
 #pragma unroll
     for (int j = 0; j < kGvVec; ++j) v[j] = tab[c[j]];
+  } else if constexpr (KB == kP8x2) {
+    const uint4 r = *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(b) + off);
+    const uint8_t* c = reinterpret_cast<const uint8_t*>(&r);
+#pragma unroll
+    for (int j = 0; j < kGvVec; ++j) {
+      v[j] = tab[c[2 * j]];
+      v[kGvVec + j] = tab[c[2 * j + 1]];
+    }
   } else if constexpr (KB == kP16) {
     const uint4 r = *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(b) + off);
     const uint16_t* c = reinterpret_cast<const uint16_t*>(&r);
@@ -223,40 +285,44 @@ __device__ __forceinline__ void load_row(const void* b, long long off, float (&v
 template <int KA, int KB, int MT>
 __global__ void __launch_bounds__(kGvThreads, 2)
 gemv_kernel(GemmArgs g, bool vec_ok) {
-  constexpr int U = MT <= 4 ? 8 : 4;  // rows a warp has in flight (registers)
-  __shared__ float As[MT][kGvKChunk];
+  constexpr int NL = KB == kP8x2 ? 2 : 1;      // lanes of a B word
+  constexpr int KC = kGvKChunk / NL;           // B rows of a staged A chunk
+  constexpr int U = (MT <= 4 ? 8 : 4) / NL;    // rows a warp has in flight (registers)
+  __shared__ float As[NL][MT][KC];
   __shared__ float red[kGvWarps][kGvCols];
   __shared__ float tab_a[KA == kP8 ? 256 : 1];
-  __shared__ float tab_b[KB == kP8 ? 256 : 1];
+  __shared__ float tab_b[KB == kP8 || KB == kP8x2 ? 256 : 1];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if constexpr (KA == kP8) posit::fill_p8_table(tab_a, g.es_a, tid, kGvThreads);
-  if constexpr (KB == kP8) posit::fill_p8_table(tab_b, g.es_b, tid, kGvThreads);
+  if constexpr (KB == kP8 || KB == kP8x2) posit::fill_p8_table(tab_b, g.es_b, tid, kGvThreads);
 
   const int n0 = blockIdx.x * kGvCols;
   const int nl = n0 + lane * kGvVec;
   const bool full = vec_ok && nl + kGvVec <= g.N;
   const int k_begin = blockIdx.z * g.k_per_split;
-  const int k_end = min(g.K, k_begin + g.k_per_split);
+  const int k_end = min(g.kb, k_begin + g.k_per_split);
   float acc[MT][kGvVec];
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int j = 0; j < kGvVec; ++j) acc[m][j] = 0.0f;
 
-  for (int kc = k_begin; kc < k_end; kc += kGvKChunk) {
-    const int kn = min(kGvKChunk, k_end - kc);
+  for (int kc = k_begin; kc < k_end; kc += KC) {
+    const int kn = min(KC, k_end - kc);
     __syncthreads();  // tables filled / previous chunk consumed
-    for (int i = tid; i < MT * kGvKChunk; i += kGvThreads) {
-      const int m = i / kGvKChunk, c = i % kGvKChunk;
+    for (int i = tid; i < NL * MT * KC; i += kGvThreads) {
+      const int l = i / (MT * KC), m = i / KC % MT, c = i % KC;
+      // lane l reads A's column l * Kh + k (the high half: zero past K)
+      const int k = l * g.kb + kc + c;
       float v = 0.0f;
-      if (m < g.M && c < kn)
-        v = to_compute(posit::load_elem<KA>(g.a, static_cast<long long>(m) * g.K + kc + c,
+      if (m < g.M && c < kn && k < g.K)
+        v = to_compute(posit::load_elem<KA>(g.a, static_cast<long long>(m) * g.K + k,
                                             g.es_a, tab_a), g.bf16_compute);
-      As[m][c] = v;
+      As[l][m][c] = v;
     }
     __syncthreads();
     for (int r0 = warp; r0 < kn; r0 += kGvWarps * U) {
-      float bv[U][kGvVec];
+      float bv[U][NL * kGvVec];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int r = r0 + u * kGvWarps;
@@ -265,9 +331,14 @@ gemv_kernel(GemmArgs g, bool vec_ok) {
           load_row<KB>(g.b, off, bv[u], tab_b, g.es_b);
         } else {
 #pragma unroll
-          for (int j = 0; j < kGvVec; ++j)
-            bv[u][j] = (r < kn && nl + j < g.N)
-                           ? posit::load_elem<KB>(g.b, off + j, g.es_b, tab_b) : 0.0f;
+          for (int j = 0; j < kGvVec; ++j) {
+            float v[NL];
+#pragma unroll
+            for (int l = 0; l < NL; ++l) v[l] = 0.0f;
+            if (r < kn && nl + j < g.N) load_b<KB>(g.b, off + j, g.es_b, tab_b, v);
+#pragma unroll
+            for (int l = 0; l < NL; ++l) bv[u][l * kGvVec + j] = v[l];
+          }
         }
         if constexpr (KB == kP16 || KB == kF32) {  // p8 and bf16 are bf16-exact
 #pragma unroll
@@ -280,10 +351,13 @@ gemv_kernel(GemmArgs g, bool vec_ok) {
         if (r >= kn) break;
 #pragma unroll
         for (int m = 0; m < MT; ++m) {
-          const float a = As[m][r];
 #pragma unroll
-          for (int j = 0; j < kGvVec; ++j)
-            acc[m][j] = fmaf(a, bv[u][j], acc[m][j]);
+          for (int l = 0; l < NL; ++l) {
+            const float a = As[l][m][r];
+#pragma unroll
+            for (int j = 0; j < kGvVec; ++j)
+              acc[m][j] = fmaf(a, bv[u][l * kGvVec + j], acc[m][j]);
+          }
         }
       }
     }
@@ -318,7 +392,7 @@ __global__ void __launch_bounds__(256) splitk_epilogue_kernel(GemmArgs g) {
   emit(g, idx, static_cast<int>(idx % g.N), y);
 }
 
-// ---- tensor-core path: B as p8 or bf16 codes, bf16 compute ----
+// ---- tensor-core path: B as p8 (packed or not) or bf16 codes, bf16 compute ----
 constexpr int kTcThreads = 256;  // 8 warps
 constexpr int kTcBN = 128;       // output columns of a tile
 constexpr int kTcBK = 64;        // k rows of a stage
@@ -336,21 +410,27 @@ constexpr int elem_bytes() {
 // by 32 B (f32: the eight rows of a phase) or 16 B. The 8-row tile keeps 3
 // stages (two blocks an SM; 3 measured faster than 4 or 5); the 64-row
 // tile, one block an SM with more work a stage, keeps 5 so its loads stay
-// ahead (5 measured faster than 3 or 4).
+// ahead (5 measured faster than 3 or 4). A packed stage (NL = 2 lanes) holds
+// twice the B bytes and two A slices, so the rings keep 2 and 3 stages: the
+// same B bytes in flight as 3 unpacked stages for the 8-row tile (two blocks
+// an SM still fit), and what fits shared memory for the 64-row tile.
 template <int KA, int KB, int MT>
 struct TcLayout {
   static constexpr int BM = 8 * MT;
+  static constexpr int NL = KB == kP8x2 ? 2 : 1;
   static constexpr int EA = elem_bytes<KA>(), EB = elem_bytes<KB>();
   static constexpr int BN = kTcBN, CG = 2, KS = 4;
-  static constexpr int STAGES = MT == 1 ? 3 : 5;
+  static constexpr int STAGES = NL == 2 ? (MT == 1 ? 2 : 3) : (MT == 1 ? 3 : 5);
   static constexpr int WS = BN * EB + 16;
   static constexpr int AS = kTcBK * EA + (EA == 4 ? 32 : 16);
   static constexpr int W_BYTES = kTcBK * WS;
-  static constexpr int STAGE = W_BYTES + BM * AS;
-  static constexpr int TAB = KB == kP8 ? 256 * 32 * 4 : 0;  // replicated p8 table
+  static constexpr int A_BYTES = BM * AS;  // one A slice
+  static constexpr int STAGE = W_BYTES + NL * A_BYTES;
+  static constexpr int TAB = KB == kP8 || KB == kP8x2 ? 256 * 32 * 4 : 0;  // replicated p8 table
   static constexpr int TAB_A = KA == kP8 ? 256 * 4 : 0;
   static constexpr int RED = 8 * 16 * 32 * 4;               // warps x floats x lanes
   static constexpr int SMEM = TAB + TAB_A + RED + STAGES * STAGE;
+  static_assert(SMEM * (MT == 1 ? 2 : 1) <= 227 * 1024, "the ring must fit its blocks an SM");
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -390,9 +470,11 @@ __device__ __forceinline__ void stage_chunk(uint8_t* dst, const uint8_t* src, in
 }
 
 // One stage: B rows k0..k0+63 x columns n0..n0+127 and A rows m0..m0+BM-1 x
-// k0..k0+63, raw, zero past M, N and K. A thread's chunks sit at fixed
-// places of the tile, so a stage inside the matrix costs a 64-bit add and a
-// cp.async a chunk; only edge stages count bytes.
+// k0..k0+63, raw, zero past M, N and K; for a packed B, packed rows and two A
+// slices, columns k0.. (zero from Kh on) and Kh+k0.. (zero from K on). A
+// thread's chunks sit at fixed places of the tile, so a stage inside the
+// matrix costs a 64-bit add and a cp.async a chunk; only edge stages count
+// bytes.
 template <int KA, int KB, int MT>
 __device__ __forceinline__ void tc_load_stage(const GemmArgs& g, uint8_t* st, int m0, int n0,
                                               int k0, bool vec_a, bool vec_b) {
@@ -402,7 +484,7 @@ __device__ __forceinline__ void tc_load_stage(const GemmArgs& g, uint8_t* st, in
   const uint8_t* b = static_cast<const uint8_t*>(g.b);
   const long long b_row = static_cast<long long>(g.N) * L::EB;
   const uint8_t* bt = b + static_cast<long long>(k0) * b_row + n0 * L::EB;
-  const bool b_inside = vec_b && k0 + kTcBK <= g.K && n0 + L::BN <= g.N;
+  const bool b_inside = vec_b && k0 + kTcBK <= g.kb && n0 + L::BN <= g.N;
   const int b_left = (g.N - n0) * L::EB;
 #pragma unroll
   for (int j = 0; j < kTcBK * WCH / kTcThreads; ++j) {
@@ -413,28 +495,34 @@ __device__ __forceinline__ void tc_load_stage(const GemmArgs& g, uint8_t* st, in
     if (b_inside) {
       cp_async16(dst, src, 16);
     } else {
-      const int nb = k0 + r < g.K ? max(0, min(16, b_left - c * 16)) : 0;
+      const int nb = k0 + r < g.kb ? max(0, min(16, b_left - c * 16)) : 0;
       stage_chunk(dst, nb > 0 ? src : b, nb, vec_b);
     }
   }
   constexpr int ACH = kTcBK * L::EA / 16;  // 16-byte chunks of an A row slice
   const uint8_t* a = static_cast<const uint8_t*>(g.a);
   const long long a_row = static_cast<long long>(g.K) * L::EA;
-  const uint8_t* at = a + static_cast<long long>(m0) * a_row + k0 * L::EA;
-  const bool a_inside = vec_a && m0 + L::BM <= g.M && k0 + kTcBK <= g.K;
-  const int a_left = (g.K - k0) * L::EA;
 #pragma unroll
-  for (int j = 0; j < (L::BM * ACH + kTcThreads - 1) / kTcThreads; ++j) {
-    const int i = threadIdx.x + j * kTcThreads;
-    if (L::BM * ACH % kTcThreads != 0 && i >= L::BM * ACH) break;
-    const int r = i / ACH, c = i % ACH;
-    uint8_t* dst = st + L::W_BYTES + r * L::AS + c * 16;
-    const uint8_t* src = at + r * a_row + c * 16;
-    if (a_inside) {
-      cp_async16(dst, src, 16);
-    } else {
-      const int nb = m0 + r < g.M ? max(0, min(16, a_left - c * 16)) : 0;
-      stage_chunk(dst, nb > 0 ? src : a, nb, vec_a);
+  for (int l = 0; l < L::NL; ++l) {
+    // slice l: A's columns l * Kh + k0 .., valid below Kh (low) or K (high)
+    const int col0 = l * g.kb + k0, lim = l == 0 ? g.kb : g.K;
+    const uint8_t* at = a + static_cast<long long>(m0) * a_row +
+                        static_cast<long long>(col0) * L::EA;
+    const bool a_inside = vec_a && m0 + L::BM <= g.M && col0 + kTcBK <= lim;
+    const int a_left = (lim - col0) * L::EA;
+#pragma unroll
+    for (int j = 0; j < (L::BM * ACH + kTcThreads - 1) / kTcThreads; ++j) {
+      const int i = threadIdx.x + j * kTcThreads;
+      if (L::BM * ACH % kTcThreads != 0 && i >= L::BM * ACH) break;
+      const int r = i / ACH, c = i % ACH;
+      uint8_t* dst = st + L::W_BYTES + l * L::A_BYTES + r * L::AS + c * 16;
+      const uint8_t* src = at + r * a_row + c * 16;
+      if (a_inside) {
+        cp_async16(dst, src, 16);
+      } else {
+        const int nb = m0 + r < g.M ? max(0, min(16, a_left - c * 16)) : 0;
+        stage_chunk(dst, nb > 0 ? src : a, nb, vec_a);
+      }
     }
   }
 }
@@ -471,27 +559,50 @@ __device__ __forceinline__ void act_frag(const uint8_t* p, const float* tab_a,
 // p8 codes go through the replicated table: entry (code, lane) is the word
 // at byte code * 128 + lane * 4 of `tab` (`lane4` = lane * 4), reached with
 // one shift, one and-or and the load.
+__device__ __forceinline__ void p8_frags(const uint2 (&r)[4], const uint8_t* tab,
+                                         uint32_t lane4, uint32_t (&f)[4][4]) {
+  auto lut = [&](const uint2& w2, int byte) {
+    const uint32_t w = byte < 4 ? w2.x : w2.y;
+    const int sh = 8 * (byte & 3) - 7;  // code * 128 = byte shifted to bit 7
+    const uint32_t off = ((sh < 0 ? w << 7 : w >> sh) & 0x7F80u) | lane4;
+    return *reinterpret_cast<const uint32_t*>(tab + off);
+  };
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j][0] = __byte_perm(lut(r[0], 2 * j), lut(r[1], 2 * j), 0x5410);
+    f[j][1] = __byte_perm(lut(r[0], 2 * j + 1), lut(r[1], 2 * j + 1), 0x5410);
+    f[j][2] = __byte_perm(lut(r[2], 2 * j), lut(r[3], 2 * j), 0x5410);
+    f[j][3] = __byte_perm(lut(r[2], 2 * j + 1), lut(r[3], 2 * j + 1), 0x5410);
+  }
+}
+
+// The four 16-byte rows (k = 2t, 2t+1, 2t+8, 2t+9) of a lane's 8 packed
+// columns; `lane_codes` splits them into one lane's 8-byte p8 rows.
+__device__ __forceinline__ void packed_rows(const uint8_t* p, int ws, uint4 (&r)[4]) {
+  r[0] = *reinterpret_cast<const uint4*>(p);
+  r[1] = *reinterpret_cast<const uint4*>(p + ws);
+  r[2] = *reinterpret_cast<const uint4*>(p + 8 * ws);
+  r[3] = *reinterpret_cast<const uint4*>(p + 9 * ws);
+}
+
+// The low (hi = false) or high bytes of each 16-bit word of a packed row:
+// one __byte_perm per 8 bytes picks the even or the odd bytes.
+__device__ __forceinline__ void lane_codes(const uint4 (&r)[4], bool hi, uint2 (&c)[4]) {
+  const uint32_t sel = hi ? 0x7531u : 0x6420u;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    c[q] = make_uint2(__byte_perm(r[q].x, r[q].y, sel), __byte_perm(r[q].z, r[q].w, sel));
+}
+
 template <int KB>
 __device__ __forceinline__ void weight_frags(const uint8_t* p, int ws, const uint8_t* tab,
                                              uint32_t lane4, uint32_t (&f)[4][4]) {
   if constexpr (KB == kP8) {
-    const uint2 r0 = *reinterpret_cast<const uint2*>(p);
-    const uint2 r1 = *reinterpret_cast<const uint2*>(p + ws);
-    const uint2 r2 = *reinterpret_cast<const uint2*>(p + 8 * ws);
-    const uint2 r3 = *reinterpret_cast<const uint2*>(p + 9 * ws);
-    auto lut = [&](const uint2& r, int byte) {
-      const uint32_t w = byte < 4 ? r.x : r.y;
-      const int sh = 8 * (byte & 3) - 7;  // code * 128 = byte shifted to bit 7
-      const uint32_t off = ((sh < 0 ? w << 7 : w >> sh) & 0x7F80u) | lane4;
-      return *reinterpret_cast<const uint32_t*>(tab + off);
-    };
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      f[j][0] = __byte_perm(lut(r0, 2 * j), lut(r1, 2 * j), 0x5410);
-      f[j][1] = __byte_perm(lut(r0, 2 * j + 1), lut(r1, 2 * j + 1), 0x5410);
-      f[j][2] = __byte_perm(lut(r2, 2 * j), lut(r3, 2 * j), 0x5410);
-      f[j][3] = __byte_perm(lut(r2, 2 * j + 1), lut(r3, 2 * j + 1), 0x5410);
-    }
+    const uint2 r[4] = {*reinterpret_cast<const uint2*>(p),
+                        *reinterpret_cast<const uint2*>(p + ws),
+                        *reinterpret_cast<const uint2*>(p + 8 * ws),
+                        *reinterpret_cast<const uint2*>(p + 9 * ws)};
+    p8_frags(r, tab, lane4, f);
   } else {  // bf16: 8 columns = 16 bytes a row, two columns a word
     const uint4 r0 = *reinterpret_cast<const uint4*>(p);
     const uint4 r1 = *reinterpret_cast<const uint4*>(p + ws);
@@ -549,7 +660,7 @@ tc_gemm_kernel(GemmArgs g, bool vec_a, bool vec_b) {
   const int cg = warp % L::CG, ks = warp / L::CG, gq = lane >> 2, tq = lane & 3;
 
   static_assert(kTcThreads == 256, "the p8 table takes one code a thread");
-  if constexpr (KB == kP8) {
+  if constexpr (KB == kP8 || KB == kP8x2) {
     // thread c decodes code c and writes its 32 lane copies, 16 bytes at a
     // time, rotated so a quarter warp's stores fall on distinct banks
     const uint32_t v = __bfloat16_as_ushort(
@@ -562,7 +673,7 @@ tc_gemm_kernel(GemmArgs g, bool vec_a, bool vec_b) {
   if constexpr (KA == kP8) posit::fill_p8_table(tab_a, g.es_a, tid, kTcThreads);
 
   const int tiles_m = (g.M + L::BM - 1) / L::BM;
-  const int iters = max(1, (g.K + kTcBK - 1) / kTcBK);  // K = 0: one zero step
+  const int iters = max(1, (g.kb + kTcBK - 1) / kTcBK);  // K = 0: one zero step
   const int total = tiles_m * ((g.N + BN - 1) / BN) * iters;
   const int grid = gridDim.x;
   const int w0 = share_start(total, blockIdx.x, grid);
@@ -614,18 +725,31 @@ tc_gemm_kernel(GemmArgs g, bool vec_a, bool vec_b) {
 
     const uint8_t* st = ring + slot * L::STAGE;
     slot = slot == S - 1 ? 0 : slot + 1;
-    uint32_t bf[MT][2];
+    const uint8_t* wp = st + (ks * 16 + 2 * tq) * L::WS + (cg * 64 + gq * 8) * L::EB;
+    const uint8_t* ap = st + L::W_BYTES + gq * L::AS + (ks * 16 + 2 * tq) * L::EA;
+    // a packed stage is two stages of MMAs: the low lanes against A's first
+    // slice, then the high lanes against its second
+    uint4 packed[KB == kP8x2 ? 4 : 1];
+    if constexpr (KB == kP8x2) packed_rows(wp, L::WS, packed);
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      act_frag<KA>(st + L::W_BYTES + (mt * 8 + gq) * L::AS + (ks * 16 + 2 * tq) * L::EA, tab_a,
-                   bf[mt][0], bf[mt][1]);
-    uint32_t af[4][4];
-    weight_frags<KB>(st + (ks * 16 + 2 * tq) * L::WS + (cg * 64 + gq * 8) * L::EB, L::WS, smem,
-                     lane * 4u, af);
+    for (int l = 0; l < L::NL; ++l) {
+      uint32_t bf[MT][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int mt = 0; mt < MT; ++mt)
+        act_frag<KA>(ap + l * L::A_BYTES + mt * 8 * L::AS, tab_a, bf[mt][0], bf[mt][1]);
+      uint32_t af[4][4];
+      if constexpr (KB == kP8x2) {
+        uint2 codes[4];
+        lane_codes(packed, l == 1, codes);
+        p8_frags(codes, smem, lane * 4u, af);
+      } else {
+        weight_frags<KB>(wp, L::WS, smem, lane * 4u, af);
+      }
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[j][mt], af[j], bf[mt][0], bf[mt][1]);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[j][mt], af[j], bf[mt][0], bf[mt][1]);
+    }
 
     if (cur.step != iters - 1 && w != w1 - 1) {
       advance(cur);
@@ -756,11 +880,13 @@ cudaError_t launch_tc(const GemmArgs& g, int grid, cudaStream_t s) {
     smem_set[dev] = true;
   }
   const long long items = static_cast<long long>((g.M + L::BM - 1) / L::BM) *
-                          ((g.N + L::BN - 1) / L::BN) * max(1, (g.K + kTcBK - 1) / kTcBK);
+                          ((g.N + L::BN - 1) / L::BN) * max(1, (g.kb + kTcBK - 1) / kTcBK);
   // the kernel counts items in int, and the plan never has more blocks than items
   if (items >= (1LL << 31) / 2 || grid > items + 1) return cudaErrorInvalidValue;
-  // 16-byte copies need every row start aligned
+  // 16-byte copies need every row start aligned (and a packed B's high A
+  // slice start, column Kh)
   const bool vec_a = (static_cast<long long>(g.K) * L::EA) % 16 == 0 &&
+                     (L::NL == 1 || (static_cast<long long>(g.kb) * L::EA) % 16 == 0) &&
                      (reinterpret_cast<uintptr_t>(g.a) & 15u) == 0;
   const bool vec_b = (static_cast<long long>(g.N) * L::EB) % 16 == 0 &&
                      (reinterpret_cast<uintptr_t>(g.b) & 15u) == 0;
@@ -776,8 +902,11 @@ cudaError_t launch_tc_rows(const GemmArgs& g, int grid, cudaStream_t s) {
 
 template <int KA>
 cudaError_t launch_tc_b(const GemmArgs& g, int b_kind, int grid, cudaStream_t s) {
-  return b_kind == kP8 ? launch_tc_rows<KA, kP8>(g, grid, s)
-                       : launch_tc_rows<KA, kBF16>(g, grid, s);
+  switch (b_kind) {
+    case kP8: return launch_tc_rows<KA, kP8>(g, grid, s);
+    case kP8x2: return launch_tc_rows<KA, kP8x2>(g, grid, s);
+    default: return launch_tc_rows<KA, kBF16>(g, grid, s);
+  }
 }
 
 template <int KA, int KB, int BM, int BN, int BK, int TM, int TN>
@@ -811,6 +940,7 @@ bool launch_b(const GemmArgs& g, int b_kind, cudaStream_t s) {
     case kBF16: launch_kinds<KA, kBF16>(g, s); return true;
     case kP8: launch_kinds<KA, kP8>(g, s); return true;
     case kP16: launch_kinds<KA, kP16>(g, s); return true;
+    case kP8x2: launch_kinds<KA, kP8x2>(g, s); return true;
     default: return false;
   }
 }
@@ -819,29 +949,32 @@ bool launch_b(const GemmArgs& g, int b_kind, cudaStream_t s) {
 
 extern "C" {
 
-// grid: tensor-core path (bf16 compute, B p8 or bf16, A f32/bf16/p8), the
-// number of persistent blocks, with `partial` (grid, 2, BM, 128) f32 and
-// `counters` (one zeroed int per output tile) when grid > 1; f32-FMA path,
-// the K split count, with `partial` (grid, M, N) when grid > 1.
-// kernels/posit_gemm/ops.py `uses_tensor_cores` makes the same choice.
+// b_kind: posit::Kind, or kP8x2 (4) for packed p8 B of ceil(K/2) rows.
+// grid: tensor-core path (bf16 compute, B p8, packed p8 or bf16, A
+// f32/bf16/p8), the number of persistent blocks, with `partial` (grid, 2,
+// BM, 128) f32 and `counters` (one zeroed int per output tile) when grid >
+// 1; f32-FMA path, the split count of B's rows, with `partial` (grid, M, N)
+// when grid > 1. kernels/posit_gemm/ops.py `uses_tensor_cores` makes the
+// same choice.
 int posit_gemm_launch(const void* a, const void* b, void* out, const float* bias,
                       const float* residual, float* partial, int* counters, int M, int N,
                       int K, int a_kind, int b_kind, int out_kind, int es_a, int es_b,
                       int es_out, int act, int bf16_compute, int grid, int k_per_split,
                       void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  const bool tc = bf16_compute && (b_kind == kP8 || b_kind == kBF16) &&
+  const bool tc = bf16_compute && (b_kind == kP8 || b_kind == kBF16 || b_kind == kP8x2) &&
                   (a_kind == kF32 || a_kind == kBF16 || a_kind == kP8);
+  const int kb = b_kind == kP8x2 ? (K + 1) / 2 : K;
   if (grid < 1 || (grid > 1 && partial == nullptr) || out_kind < kF32 || out_kind > kP16 ||
       act < posit::kActNone || act > posit::kActRelu)
     return static_cast<int>(cudaErrorInvalidValue);
   if (tc ? (grid > 1 && counters == nullptr)
-         : (k_per_split < 1 || static_cast<long long>(grid) * k_per_split < K))
+         : (k_per_split < 1 || static_cast<long long>(grid) * k_per_split < kb))
     return static_cast<int>(cudaErrorInvalidValue);
   auto clamp_es = [](int es) { return es < 0 ? 0 : (es > 3 ? 3 : es); };
-  GemmArgs g{a,        b,   out,          bias,           residual,       partial,
-             counters, M,   N,            K,              clamp_es(es_a), clamp_es(es_b),
-             clamp_es(es_out), out_kind, act, bf16_compute, grid, k_per_split};
+  GemmArgs g{a,        b,  out, bias,           residual,       partial,        counters,
+             M,        N,  K,   kb,             clamp_es(es_a), clamp_es(es_b), clamp_es(es_out),
+             out_kind, act, bf16_compute, grid, k_per_split};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tc) {
     switch (a_kind) {

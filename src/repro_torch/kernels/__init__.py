@@ -13,6 +13,8 @@ LAUNCHES: dict[str, int] = {
     "posit_decode": 0,
     "posit_encode": 0,
     "posit_gemm": 0,
+    "posit_gemm_packed": 0,
+    "posit_gemm_packed_fma": 0,
     "posit_attention": 0,
     "posit_quire_gemm": 0,
     "posit_softmax": 0,

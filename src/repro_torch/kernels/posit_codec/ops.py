@@ -1,5 +1,9 @@
 """Front door for the streaming codec: the CUDA kernel for CUDA tensors, the
-plain version (``ref.py``) for CPU tensors."""
+plain version (``ref.py``) for CPU tensors.
+
+``codec_impl`` ("auto" | "lut" | "bits") picks the plain version's
+implementation (``core/lut.py``); the kernel always runs its bit pipeline.
+Both give the same bits."""
 from __future__ import annotations
 
 import ctypes
@@ -23,13 +27,14 @@ def _lib():
 
 
 def decode(codes: torch.Tensor, es: int, *, nbits: int,
-           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+           out_dtype: torch.dtype = torch.float32, codec_impl: str = "bits") -> torch.Tensor:
     """posit codes (any shape) -> float tensor of the same shape."""
     require(nbits in (8, 16), f"nbits must be 8 or 16, got {nbits}")
     require(out_dtype in (torch.float32, torch.bfloat16),
             f"decode writes float32 or bfloat16, got {out_dtype}")
     if on_cpu(codes):
-        return ref.decode_ref(codes, es, nbits=nbits, out_dtype=out_dtype)
+        return ref.decode_ref(codes, es, nbits=nbits, out_dtype=out_dtype,
+                              codec_impl=codec_impl)
     require(codes.dtype == _CODE_DTYPE[nbits],
             f"p{nbits} codes must be {_CODE_DTYPE[nbits]}, got {codes.dtype}")
     require(codes.is_contiguous(), "decode needs contiguous codes")
@@ -44,11 +49,12 @@ def decode(codes: torch.Tensor, es: int, *, nbits: int,
     return out
 
 
-def encode(x: torch.Tensor, es: int, *, nbits: int, ftz: bool = False) -> torch.Tensor:
+def encode(x: torch.Tensor, es: int, *, nbits: int, ftz: bool = False,
+           codec_impl: str = "bits") -> torch.Tensor:
     """float32 tensor (any shape) -> posit codes of the same shape."""
     require(nbits in (8, 16), f"nbits must be 8 or 16, got {nbits}")
     if on_cpu(x):
-        return ref.encode_ref(x, es, nbits=nbits, ftz=ftz)
+        return ref.encode_ref(x, es, nbits=nbits, ftz=ftz, codec_impl=codec_impl)
     require(x.dtype == torch.float32, f"encode reads float32, got {x.dtype}")
     require(x.is_contiguous(), "encode needs a contiguous input")
     out = torch.empty(x.shape, dtype=_CODE_DTYPE[nbits], device=x.device)

@@ -1,5 +1,11 @@
 """Front door for the fused posit GEMM: the CUDA kernel for CUDA tensors, the
-plain version (``ref.py``) for CPU tensors."""
+plain version (``ref.py``) for CPU tensors.
+
+B may arrive as packed p8 lanes (``b_packed``, core/pack.py): (ceil(K/2), N)
+uint16, two codes a word. The kernel's packed variants walk the packed rows
+and split each word into its two codes; their launches count under
+``posit_gemm_packed`` (tensor cores) and ``posit_gemm_packed_fma`` (f32
+FMA), the unpacked kernel's under ``posit_gemm``."""
 from __future__ import annotations
 
 import ctypes
@@ -31,8 +37,14 @@ def _lib():
     return build.load("posit_gemm", _SIGNATURES)
 
 
-def _kind(fmt: Fmt) -> tuple[int, torch.dtype]:
+# Storage kind of a packed p8 B operand, two codes a uint16 (csrc/posit_gemm.cu kP8x2)
+PACKED_KIND = 4
+
+
+def _kind(fmt: Fmt, packed: bool = False) -> tuple[int, torch.dtype]:
     """(storage kind of csrc/posit_codec.cuh, torch dtype) of a pcsr slot."""
+    if packed:
+        return PACKED_KIND, torch.uint16
     if isinstance(fmt, PositFmt):
         return (2 if fmt.nbits == 8 else 3), fmt.storage_dtype
     require(fmt in (F32, BF16), f"the GEMM kernel takes f32/bf16 float slots, got {fmt}")
@@ -46,10 +58,17 @@ def _sm_count(device_index: int) -> int:
 
 def uses_tensor_cores(a_kind: int, b_kind: int, bf16_compute: bool) -> bool:
     """The pairs the kernel computes on bf16 tensor cores: bf16 compute, B as p8
-    or bf16 codes, A as f32, bf16 or p8 (``posit_gemm_launch`` in
-    csrc/posit_gemm.cu makes the same choice). Other pairs take the f32 FMA
+    (packed or not) or bf16 codes, A as f32, bf16 or p8 (``posit_gemm_launch``
+    in csrc/posit_gemm.cu makes the same choice). Other pairs take the f32 FMA
     kernels."""
-    return bf16_compute and b_kind in (1, 2) and a_kind in (0, 1, 2)
+    return bf16_compute and b_kind in (1, 2, PACKED_KIND) and a_kind in (0, 1, 2)
+
+
+def launch_counter(b_kind: int, tensor_cores: bool) -> str:
+    """The ``kernels.LAUNCHES`` key a launch of this B kind and datapath adds to."""
+    if b_kind != PACKED_KIND:
+        return "posit_gemm"
+    return "posit_gemm_packed" if tensor_cores else "posit_gemm_packed_fma"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +76,8 @@ class StreamPlan:
     """The tensor-core kernel's stream-K grid: ``grid`` persistent blocks walk
     the ``tiles * steps`` (output tile, 64-row k step) items in equal
     contiguous shares; block b takes items [total * b // grid,
-    total * (b + 1) // grid) (``share_start`` in csrc/posit_gemm.cu)."""
+    total * (b + 1) // grid) (``share_start`` in csrc/posit_gemm.cu). For a
+    packed B a step is 64 packed rows, so ``steps`` walks ceil(K/2)."""
     rows: int    # tile height: 8 (M <= 8, padded) or 64
     tiles: int   # output tiles, ``rows`` x 128 columns
     steps: int   # k steps of a tile
@@ -123,24 +143,33 @@ def posit_gemm(
     residual: Optional[torch.Tensor] = None,
     activation: str = "none",
     compute_dtype: Optional[torch.dtype] = None,
+    b_packed: bool = False,
+    codec_impl: str = "auto",
 ) -> torch.Tensor:
     """O = epilogue(decode(A) @ decode(B)), encoded per ``out_fmt``.
 
-    A (M, K), B (K, N): posit codes or float per their slots; es = (es_a,
+    A (M, K), B (K, N): posit codes or float per their slots; with
+    ``b_packed`` B is (ceil(K/2), N) uint16 packed p8 lanes. es = (es_a,
     es_b, es_out) ints; bias (N,) f32; residual (M, N) f32; epilogue =
-    ``act(acc + bias) + residual``.
+    ``act(acc + bias) + residual``. ``codec_impl`` picks the plain version's
+    B decode; the kernel decodes p8 with its own tables either way (the same
+    bits).
     """
     require(activation in ACTIVATIONS,
             f"activation must be one of {ACTIVATIONS}, got {activation!r}")
-    require(a.dim() == 2 and b.dim() == 2 and a.shape[1] == b.shape[0],
-            f"GEMM shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    kb = (a.shape[-1] + 1) // 2 if b_packed else a.shape[-1]
+    require(a.dim() == 2 and b.dim() == 2 and kb == b.shape[0],
+            f"GEMM shapes {tuple(a.shape)} @ {tuple(b.shape)}"
+            + (" (packed B has ceil(K/2) rows)" if b_packed else ""))
+    require(not b_packed or (isinstance(b_fmt, PositFmt) and b_fmt.nbits == 8),
+            f"packed B requires a p8 slot, got {b_fmt}")
     M, K = a.shape
     N = b.shape[1]
     require(bias is None or tuple(bias.shape) == (N,), f"bias must be ({N},)")
     require(residual is None or tuple(residual.shape) == (M, N),
             f"residual must be ({M}, {N})")
     if compute_dtype is None:
-        compute_dtype = format_pair_plan(a_fmt, b_fmt).compute_dtype
+        compute_dtype = format_pair_plan(a_fmt, b_fmt, packed_b=b_packed).compute_dtype
     require(compute_dtype in (torch.float32, torch.bfloat16),
             f"compute dtype must be float32 or bfloat16, got {compute_dtype}")
     es = tuple(int(e) for e in es)
@@ -148,9 +177,10 @@ def posit_gemm(
     if on_cpu(a, b, *extra):
         return ref.posit_gemm_ref(a, b, es, a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
                                   bias=bias, residual=residual, activation=activation,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype, b_packed=b_packed,
+                                  codec_impl=codec_impl)
     a_kind, a_dtype = _kind(a_fmt)
-    b_kind, b_dtype = _kind(b_fmt)
+    b_kind, b_dtype = _kind(b_fmt, b_packed)
     out_kind, out_dtype = _kind(out_fmt)
     require(a.dtype == a_dtype, f"A must be {a_dtype} for slot {a_fmt}, got {a.dtype}")
     require(b.dtype == b_dtype, f"B must be {b_dtype} for slot {b_fmt}, got {b.dtype}")
@@ -166,14 +196,15 @@ def posit_gemm(
     sms = _sm_count(a.device.index or 0)
     stream = stream_handle(a)
     counters = None
-    if uses_tensor_cores(a_kind, b_kind, compute_dtype == torch.bfloat16):
-        plan = split_plan(M, N, K, sms)
+    tensor_cores = uses_tensor_cores(a_kind, b_kind, compute_dtype == torch.bfloat16)
+    if tensor_cores:
+        plan = split_plan(M, N, kb, sms)
         grid, k_per_split = plan.grid, 0
         partial = (torch.empty((grid, 2, plan.rows, TC_COLS), dtype=torch.float32,
                                device=a.device) if grid > 1 else None)
         counters = _counters(a.device, stream, plan.tiles) if grid > 1 else None
     else:
-        grid, k_per_split = fma_split_plan(M, N, K, sms)
+        grid, k_per_split = fma_split_plan(M, N, kb, sms)
         partial = (torch.empty((grid, M, N), dtype=torch.float32, device=a.device)
                    if grid > 1 else None)
     rc = _lib().posit_gemm_launch(
@@ -185,7 +216,7 @@ def posit_gemm(
         M, N, K, a_kind, b_kind, out_kind, es[0], es[1], es[2], _ACT[activation],
         int(compute_dtype == torch.bfloat16), grid, k_per_split, stream)
     check_rc(rc, "posit_gemm")
-    kernels.LAUNCHES["posit_gemm"] += 1
+    kernels.LAUNCHES[launch_counter(b_kind, tensor_cores)] += 1
     return out
 
 
@@ -195,9 +226,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
          residual=None) -> torch.Tensor:
     """O = epilogue(decode(A) @ decode(B)) -> encode, per the pcsr slots.
     A pcsr with ``dataflow="quire"`` routes to the exact-accumulation kernel
-    (``kernels.posit_quire_gemm``)."""
-    if slots.rs2_packed:
-        raise NotImplementedError("packed-p8 weights are not ported yet")
+    (``kernels.posit_quire_gemm``), which unpacks a packed B first."""
     if slots.dataflow == "quire":
         from repro_torch.kernels.posit_quire_gemm.ops import quire_gemm
 
@@ -212,4 +241,5 @@ def gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
     return posit_gemm(a, b, (_es(es_a, slots.rs1), _es(es_b, slots.rs2),
                              _es(es_out, slots.rd)),
                       a_fmt=slots.rs1, b_fmt=slots.rs2, out_fmt=slots.rd,
-                      bias=bias, residual=residual, activation=activation)
+                      bias=bias, residual=residual, activation=activation,
+                      b_packed=slots.rs2_packed, codec_impl=slots.codec_impl)

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core.dot import ACTIVATIONS
+from repro_torch.core.pack import unpack_p8
 from repro_torch.core.pcsr import OperandSlots
 from repro_torch.core.types import F32, Fmt, PositFmt
 from repro_torch.kernels import build, check_rc, on_cpu, require, stream_handle
@@ -160,7 +161,10 @@ def quire_gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
 
     With an epilogue (bias/activation/residual) the exact sum rounds once
     into f32, the epilogue applies, and a posit rd encodes the result. rd may
-    be F32: the single rounding of the exact sum is then the output.
+    be F32: the single rounding of the exact sum is then the output. A
+    packed rs2 (``slots.rs2_packed``) is split into plain p8 codes first
+    (``core.pack.unpack_p8``): the quire's sum does not depend on the
+    layout, so packed and unpacked B give the same bits.
     """
     for name, f in (("rs1", slots.rs1), ("rs2", slots.rs2)):
         if not isinstance(f, PositFmt):
@@ -169,7 +173,7 @@ def quire_gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
                 "accumulates posit products exactly; float slots have no "
                 "quire representation")
     if slots.rs2_packed:
-        raise NotImplementedError("packed-p8 weights are not ported yet")
+        b = unpack_p8(b, a.shape[1]).contiguous()
 
     def _es(x, fmt):
         if x is not None:

@@ -108,7 +108,9 @@ class ContinuousBatchingEngine:
     """Admission + decode + eviction over a fixed slot grid.
 
     Drive it with :meth:`run` (wall-clock loop honoring arrival times) or by
-    hand with :meth:`submit` / :meth:`admit` / :meth:`step`.
+    hand with :meth:`submit` / :meth:`admit` / :meth:`step`. ``policy`` is a
+    ``TransPolicy`` or a per-layer ``PrecisionPolicy``: the engine hands it
+    to the model as it is, and each linear resolves its own format.
     """
 
     def __init__(self, model, params, policy, *, max_slots: int, S_max: int,

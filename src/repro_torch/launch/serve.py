@@ -1,14 +1,19 @@
 """Serving CLI: continuous batching over the ragged posit KV cache.
 
     python -m repro_torch.launch.serve --arch qwen2.5-14b --continuous \
-        --max-slots 4 --requests 8 --prompt-len 64 --gen 16 --policy p8-serve
+        --max-slots 4 --requests 8 --prompt-len 64 --gen 16 --policy p8-serve \
+        --precision-policy attn-p16-mlp-p8
 
-Weights are random, drawn from ``--seed`` on the device, and quantized to
-``policy.weights`` layer by layer as they are drawn. Every stdout line is one
+``--precision-policy`` schedules per-layer weight formats over the
+``--policy`` base (which keeps every other role: KV cache, compute dtype):
+a preset name, a ``pattern=fmt[@es][:packed],...`` spec, or
+``@artifact.json`` (core/policy.py). Weights are random, drawn from
+``--seed`` on the device, and quantized to each layer's format as they are
+drawn (packed p8 lanes where the layer's rule packs). Every stdout line is one
 JSON object with a ``"kind"`` key: one ``serve/prefill`` line per request
 (its prefill time), then one ``serve/report`` (tokens/s, per-token latency
-percentiles, KV bytes per token, kernel launches during the run, and the
-KV cache's decoded health). Runs on the CUDA device unless ``--device cpu``.
+percentiles, KV bytes per token, linear-weight bytes under the policy and
+in f32, kernel launches during the run, and the KV cache's decoded health). Runs on the CUDA device unless ``--device cpu``.
 Only the continuous mode is ported; the reference's static mode, paged
 engine and observability/fault-tolerance flags are not.
 """
@@ -17,7 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,8 +30,10 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.core.pcsr import TransPolicy, parse_policy
+from repro_torch.core.policy import get_precision_policy
 from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.launch.engine import ContinuousBatchingEngine, Request, poisson_requests
+from repro_torch.models.layers import policy_weight_bytes
 from repro_torch.models.registry import build_model
 
 
@@ -54,8 +61,16 @@ def kv_health(cache: dict, policy: TransPolicy) -> dict:
     return {"kv_nar_codes": nar, "kv_absmax": absmax}
 
 
-def serve(arch: str, *, policy: str = "p8-serve", reduced: bool = False,
-          max_slots: int = 4, requests: int = 8, prompt_len: int = 64, gen: int = 16,
+def build_policy(policy: str = "p8-serve", precision_policy: Optional[str] = None):
+    """The serving policy: ``policy`` (parse_policy's grammar), with
+    ``precision_policy`` (a preset, a spec or ``@artifact.json``) scheduling
+    the weights over it when given."""
+    pol = parse_policy(policy)
+    return pol if not precision_policy else get_precision_policy(precision_policy, base=pol)
+
+
+def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str] = None,
+          reduced: bool = False, max_slots: int = 4, requests: int = 8, prompt_len: int = 64, gen: int = 16,
           arrival_rate: float = 0.0, temperature: float = 0.0, top_k: int = 0,
           seed: int = 0, device="cuda", emit: Callable[[dict], None] = None) -> dict:
     """Build ``arch`` from ``seed``, serve ``requests`` through the
@@ -63,10 +78,11 @@ def serve(arch: str, *, policy: str = "p8-serve", reduced: bool = False,
     emit = emit or (lambda ev: print(json.dumps(ev), flush=True))
     cfg = get_arch(arch)
     cfg = cfg.reduced() if reduced else cfg
-    pol = parse_policy(policy)
+    pol = build_policy(policy, precision_policy)
     model = build_model(cfg, device=device)
     t0 = time.perf_counter()
     params = model.init(seed, pol)
+    weight_report = policy_weight_bytes(params, pol)
     S_max = prompt_len + gen
     eng = ContinuousBatchingEngine(model, params, pol, max_slots=max_slots, S_max=S_max,
                                    temperature=temperature, top_k=top_k, seed=seed)
@@ -114,6 +130,7 @@ def serve(arch: str, *, policy: str = "p8-serve", reduced: bool = False,
         "p50_ttft_ms": percentile_ms([c.ttft_s for c in completions], 50),
         "kv_cache_bytes": kv_b,
         "kv_bytes_per_token": kv_b // (max_slots * S_max),
+        **weight_report,
         "kernel_launches": launches,
         "nonfinite_logit_rows": eng.nonfinite_rows,
         "completion_tokens": {c.rid: len(c.tokens) for c in completions},
@@ -143,6 +160,10 @@ def main(argv=None):
                     help="Poisson arrivals per second (0: all at t=0)")
     ap.add_argument("--policy", default="p8-serve",
                     help="none | p8-serve | role=fmt,...,compute=bf16")
+    ap.add_argument("--precision-policy", default=None,
+                    help="per-layer weight formats over --policy: a preset "
+                         "(uniform-p16, p8-weights, p8-packed, attn-p16-mlp-p8), "
+                         "a pattern=fmt[@es][:packed],... spec, or @artifact.json")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
@@ -150,7 +171,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not args.continuous:
         ap.error("only --continuous serving is ported")
-    serve(args.arch, policy=args.policy, reduced=args.reduced, max_slots=args.max_slots,
+    serve(args.arch, policy=args.policy, precision_policy=args.precision_policy,
+          reduced=args.reduced, max_slots=args.max_slots,
           requests=args.requests, prompt_len=args.prompt_len, gen=args.gen,
           arrival_rate=args.arrival_rate, temperature=args.temperature, top_k=args.top_k,
           seed=args.seed, device=args.device)

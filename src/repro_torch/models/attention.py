@@ -38,14 +38,17 @@ class AttnCfg:
     is_cross: bool = False
 
 
-def init_attention(gen: torch.Generator, cfg: AttnCfg, *, device="cpu", wfmt=None) -> dict:
+def init_attention(gen: torch.Generator, cfg: AttnCfg, *, device="cpu", policy=None,
+                   path: str = "attn") -> dict:
+    """The four projections; under ``policy`` each is quantized as it is
+    drawn, to the format its path (``{path}/wq`` ...) resolves to."""
     d, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim
-    kw = dict(device=device, wfmt=wfmt)
+    kw = dict(device=device, policy=policy)
     return {
-        "wq": init_linear(gen, d, H * hd, bias=cfg.qkv_bias, **kw),
-        "wk": init_linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, **kw),
-        "wv": init_linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, **kw),
-        "wo": init_linear(gen, H * hd, d, scale=(H * hd) ** -0.5, **kw),
+        "wq": init_linear(gen, d, H * hd, bias=cfg.qkv_bias, path=f"{path}/wq", **kw),
+        "wk": init_linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, path=f"{path}/wk", **kw),
+        "wv": init_linear(gen, d, Hkv * hd, bias=cfg.qkv_bias, path=f"{path}/wv", **kw),
+        "wo": init_linear(gen, H * hd, d, scale=(H * hd) ** -0.5, path=f"{path}/wo", **kw),
     }
 
 
@@ -129,14 +132,15 @@ def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos, policy: TransPolicy)
 
 def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
                       policy: TransPolicy, *,
-                      residual: Optional[torch.Tensor] = None) -> tuple:
+                      residual: Optional[torch.Tensor] = None, path: str = "attn") -> tuple:
     """Full-sequence causal attention that also fills the KV cache (in place).
-    x: (B, S, D); ``residual`` fuses into the wo epilogue. Returns (y, cache)."""
+    x: (B, S, D); ``residual`` fuses into the wo epilogue; ``path`` names the
+    projections for a per-layer policy. Returns (y, cache)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    q = _split_heads(apply_linear(params["wq"], x, policy), H, hd)
-    k = _split_heads(apply_linear(params["wk"], x, policy), Hkv, hd)
-    v = _split_heads(apply_linear(params["wv"], x, policy), Hkv, hd)
+    q = _split_heads(apply_linear(params["wq"], x, policy, path=f"{path}/wq"), H, hd)
+    k = _split_heads(apply_linear(params["wk"], x, policy, path=f"{path}/wk"), Hkv, hd)
+    v = _split_heads(apply_linear(params["wv"], x, policy, path=f"{path}/wv"), Hkv, hd)
     if cfg.use_rope:
         rope = rope_tables(torch.arange(S, device=x.device)[None], hd, cfg.rope_base)
         q, k = apply_rope(q, *rope), apply_rope(k, *rope)
@@ -144,7 +148,8 @@ def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
     if S > Sc:
         raise ValueError(f"prompt of {S} tokens exceeds the cache's {Sc} rows")
     out = _sdpa(q, k, v, hd ** -0.5, causal=cfg.causal)
-    y = apply_linear(params["wo"], out.reshape(B, S, H * hd), policy, residual=residual)
+    y = apply_linear(params["wo"], out.reshape(B, S, H * hd), policy, residual=residual,
+                     path=f"{path}/wo")
     _store(cache["k"], k.transpose(1, 2), 0, policy)
     _store(cache["v"], v.transpose(1, 2), 0, policy)
     cache["len"].fill_(S)
@@ -170,20 +175,22 @@ def resolve_attn_impl(policy: TransPolicy, cfg: AttnCfg, *, rolling: bool = Fals
 def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: dict,
                           pos: torch.Tensor, policy: TransPolicy, *,
                           rolling: bool = False, rope=None,
-                          residual: Optional[torch.Tensor] = None) -> tuple:
+                          residual: Optional[torch.Tensor] = None,
+                          path: str = "attn") -> tuple:
     """One decode step. x_t: (B, 1, D); pos: (B,) int32 per-row cache write
     index (= the row's sequence position). Writes the new K/V row in place,
     counts it in ``cache["len"]`` (clamped to the buffer size) and attends
     through the decode-attention kernel. ``rope`` is the step's
     ``rope_tables`` of ``pos`` (shared by every layer; made here when None);
-    ``residual`` fuses into the wo epilogue. Returns (y, cache)."""
+    ``residual`` fuses into the wo epilogue; ``path`` names the projections
+    for a per-layer policy. Returns (y, cache)."""
     B = x_t.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     if resolve_attn_impl(policy, cfg, rolling=rolling) != "kernel":
         raise NotImplementedError("only the decode-attention kernel path is ported")
-    q = _split_heads(apply_linear(params["wq"], x_t, policy), H, hd)
-    kn = _split_heads(apply_linear(params["wk"], x_t, policy), Hkv, hd)
-    vn = _split_heads(apply_linear(params["wv"], x_t, policy), Hkv, hd)
+    q = _split_heads(apply_linear(params["wq"], x_t, policy, path=f"{path}/wq"), H, hd)
+    kn = _split_heads(apply_linear(params["wk"], x_t, policy, path=f"{path}/wk"), Hkv, hd)
+    vn = _split_heads(apply_linear(params["wv"], x_t, policy, path=f"{path}/wv"), Hkv, hd)
     if cfg.use_rope:
         if rope is None:
             rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
@@ -199,5 +206,5 @@ def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: 
         fmt.es if fmt is not None else 0, kv_bits=fmt.nbits if fmt is not None else 0,
         rolling=rolling)
     y = apply_linear(params["wo"], out.reshape(B, 1, H * hd).to(x_t.dtype), policy,
-                     residual=residual)
+                     residual=residual, path=f"{path}/wo")
     return y, cache

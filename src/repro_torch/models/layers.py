@@ -2,13 +2,16 @@
 
 Parameter convention, as in the reference: nested dicts of tensors. Posit-
 stored weights appear as ``{"w_codes": uint8/uint16 (K, N), "b": ...}`` after
-``quantize_params``; float weights as ``{"w": (K, N)}``. The TransPolicy says
-how to read them.
+``quantize_params``, packed p8 lanes as ``{"w_packed": uint16 (K/2, N)}``
+(core/pack.py); float weights as ``{"w": (K, N)}``. The policy says how to
+read them: a ``TransPolicy``, or a per-layer ``PrecisionPolicy``
+(core/policy.py) that each linear resolves with its path.
 
 Every linear goes through a GEMM kernel wrapper: the posit GEMM
-(``kernels.posit_gemm.ops.posit_gemm``), or under ``dataflow="quire"`` for
-posit-coded weights the quire GEMM (``kernels.posit_quire_gemm``). On CUDA
-tensors that is the hand-written kernel, on CPU tensors its plain version.
+(``kernels.posit_gemm.ops.posit_gemm``, its packed variant for packed
+lanes), or under ``dataflow="quire"`` for posit-coded weights the quire GEMM
+(``kernels.posit_quire_gemm``). On CUDA tensors that is the hand-written
+kernel, on CPU tensors its plain version.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dot import float_fmt, posit_dot, posit_matmul_wx
+from repro_torch.core.dot import apply_epilogue, float_fmt, posit_dot, posit_matmul_wx
+from repro_torch.core.pack import pack_p8, unpack_p8
 from repro_torch.core.pcsr import OperandSlots, TransPolicy
 from repro_torch.core.types import F32, PositFmt
 from repro_torch.kernels.posit_codec import ops as codec_ops
@@ -29,142 +33,207 @@ def compute_dtype(policy: TransPolicy) -> torch.dtype:
 
 def check_ported(policy: TransPolicy) -> None:
     """Raise on policy knobs whose code paths are not ported yet."""
-    if policy.pack_weights:
-        raise NotImplementedError("packed-p8 weights are not ported")
-    if policy.codec_impl == "lut":
-        raise NotImplementedError("codec_impl='lut' is not ported")
-    if policy.epilogue != "fused":
-        raise NotImplementedError(f"epilogue={policy.epilogue!r} is not ported")
     if policy.attn_impl == "xla":
         raise NotImplementedError("attn_impl='xla' (full-cache einsum) is not ported")
+
+
+def layer_path(path: str) -> str:
+    """A param-tree path in the reference's spelling: the port keeps one dict
+    per layer (``blocks/3/attn/wq``) where the reference stacks the layers
+    (``blocks/attn/wq``), so the layer index is dropped."""
+    return "/".join(part for part in path.split("/") if not part.isdigit())
+
+
+def resolve_policy(policy, path: str = "") -> TransPolicy:
+    """The TransPolicy of the layer at ``path``: a ``PrecisionPolicy``
+    resolves through its rules (on the path without layer indices, so draw
+    time, quantize time and call time agree), a ``TransPolicy`` passes as it
+    is."""
+    resolve = getattr(policy, "policy_for", None)
+    return resolve(layer_path(path)) if resolve is not None else policy
 
 
 # ------------------------------------------------------------------ linear ----
 
 def init_linear(gen: torch.Generator, d_in: int, d_out: int, *, bias: bool = False,
-                scale: Optional[float] = None, device="cpu",
-                wfmt: Optional[PositFmt] = None) -> dict:
+                scale: Optional[float] = None, device="cpu", policy=None,
+                path: str = "") -> dict:
     """Random-normal (d_in, d_out) weight times ``scale`` (default d_in**-0.5),
-    zero bias. ``wfmt`` quantizes it at once, so no f32 copy outlives the call."""
+    zero bias. Under a ``policy`` the weight is quantized at once to the
+    layer's format (``path`` resolves it), so no f32 copy outlives the call."""
     if scale is None:
         scale = d_in ** -0.5
     p = {"w": torch.randn((d_in, d_out), generator=gen, device=device) * scale}
     if bias:
         p["b"] = torch.zeros((d_out,), device=device)
-    return p if wfmt is None else quantize_linear(p, wfmt)
+    return p if policy is None else _quantize_resolved(p, resolve_policy(policy, path))
 
 
 def quantize_linear(p: dict, fmt: PositFmt, *, packed: bool = False) -> dict:
     """Convert a float linear param dict to posit storage (serving path).
+    ``packed=True`` stores p8 codes two to a uint16 lane (core/pack.py).
     Biases stay float."""
-    if packed:
-        raise NotImplementedError("packed-p8 weight storage is not ported")
-    q = {"w_codes": codec_ops.encode(p["w"].to(torch.float32).contiguous(), fmt.es,
-                                     nbits=fmt.nbits)}
+    if packed and fmt.nbits != 8:
+        raise ValueError(f"packed weight storage requires p8, got {fmt}")
+    codes = codec_ops.encode(p["w"].to(torch.float32).contiguous(), fmt.es, nbits=fmt.nbits)
+    q = {"w_packed": pack_p8(codes)} if packed else {"w_codes": codes}
     if "b" in p:
         q["b"] = p["b"]
     return q
 
 
-def effective_weight(p: dict, policy: TransPolicy, es: Optional[int] = None) -> torch.Tensor:
-    """The weight as the matmul datapath sees it: posit codes decode; a float
-    weight under a posit policy is quantized (the reference's straight-through
-    form ``w + (q(w) - w)``); a float weight without one passes as it is."""
+def _quantize_resolved(p: dict, pol: TransPolicy) -> dict:
+    """``p`` in the layer's resolved format: packed lanes when the policy
+    packs p8 weights and the contraction dim is even (an odd one keeps plain
+    codes), untouched without a posit weight format."""
+    fmt = pol.weights
+    if fmt is None:
+        return p
+    packed = pol.pack_weights and fmt.nbits == 8 and p["w"].shape[-2] % 2 == 0
+    return quantize_linear(p, fmt, packed=packed)
+
+
+def effective_weight(p: dict, policy, es: Optional[int] = None, path: str = "") -> torch.Tensor:
+    """The weight as the matmul datapath sees it: posit codes (packed lanes
+    included) decode; a float weight under a posit policy is quantized (the
+    reference's straight-through form ``w + (q(w) - w)``); a float weight
+    without one passes as it is."""
+    policy = resolve_policy(policy, path)
     fmt = policy.weights
-    if "w_codes" in p:
+    coded = p.get("w_codes")
+    if "w_packed" in p:
+        assert fmt is not None and fmt.nbits == 8, "packed params need a p8 policy.weights"
+        coded = unpack_p8(p["w_packed"]).contiguous()
+    if coded is not None:
         assert fmt is not None, "posit-coded params need policy.weights"
-        return codec_ops.decode(p["w_codes"], fmt.es if es is None else es,
-                                nbits=fmt.nbits)
+        return codec_ops.decode(coded, fmt.es if es is None else es, nbits=fmt.nbits,
+                                codec_impl=policy.codec_impl)
     w = p["w"]
     if fmt is not None:
         e = fmt.es if es is None else es
         wf = w.to(torch.float32).contiguous()
-        qw = codec_ops.decode(codec_ops.encode(wf, e, nbits=fmt.nbits), e, nbits=fmt.nbits)
+        qw = codec_ops.decode(codec_ops.encode(wf, e, nbits=fmt.nbits), e, nbits=fmt.nbits,
+                              codec_impl=policy.codec_impl)
         w = w + (qw - wf).to(w.dtype)
     return w
 
 
-def apply_linear(p: dict, x: torch.Tensor, policy: TransPolicy, es: Optional[int] = None,
+def apply_linear(p: dict, x: torch.Tensor, policy, es: Optional[int] = None,
                  *, activation: str = "none",
-                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """y = act(x @ W + b) + residual, epilogue fused with the GEMM."""
-    return _linear_resolved(p, x, policy, es, activation=activation, residual=residual)
+                 residual: Optional[torch.Tensor] = None, path: str = "") -> torch.Tensor:
+    """y = act(x @ W + b) + residual, epilogue fused with the GEMM (or
+    chained after it under ``policy.epilogue == "chained"``). ``path`` names
+    the layer for a per-layer ``PrecisionPolicy``."""
+    return _linear_resolved(p, x, resolve_policy(policy, path), es, activation=activation,
+                            residual=residual)
 
 
 def _linear_resolved(p: dict, x: torch.Tensor, policy: TransPolicy, es, *,
                      activation: str, residual: Optional[torch.Tensor]) -> torch.Tensor:
-    """x is rounded to the compute dtype for the GEMM (inside the kernel); the
-    f32 result comes back as x.dtype, as in the reference."""
+    """apply_linear past policy resolution. x is rounded to the compute dtype
+    for the GEMM (inside the kernel); the f32 result comes back as x.dtype,
+    as in the reference."""
     cd = compute_dtype(policy)
-    if "w_codes" in p:
+    packed = "w_packed" in p
+    if packed or "w_codes" in p:
         fmt = policy.weights
         assert fmt is not None, "posit-coded params need policy.weights"
         if policy.dataflow == "quire":
             return _quire_linear(p, x, policy, fmt, es, activation=activation,
-                                 residual=residual)
-        return posit_matmul_wx(x, p["w_codes"], fmt, es=es, compute_dtype=cd,
-                               bias=p.get("b"), activation=activation,
-                               residual=residual, out_dtype=x.dtype)
+                                 residual=residual, packed=packed)
+        return posit_matmul_wx(x, p["w_packed"] if packed else p["w_codes"], fmt, es=es,
+                               compute_dtype=cd, bias=p.get("b"), activation=activation,
+                               residual=residual, out_dtype=x.dtype,
+                               codec_impl=policy.codec_impl, epilogue=policy.epilogue,
+                               packed=packed)
     w = effective_weight(p, policy, es).to(cd).contiguous()
     K, N = w.shape
     lead = x.shape[:-1]
+    res = None if residual is None else residual.reshape(-1, N).contiguous()
+    chained = policy.epilogue == "chained"
     y = posit_gemm(x.reshape(-1, K).contiguous(), w, (0, 0, 0),
                    a_fmt=float_fmt(x.dtype), b_fmt=float_fmt(cd), out_fmt=F32,
-                   compute_dtype=cd,
-                   bias=p.get("b"), activation=activation,
-                   residual=None if residual is None else residual.reshape(-1, N).contiguous())
+                   compute_dtype=cd, bias=None if chained else p.get("b"),
+                   activation="none" if chained else activation,
+                   residual=None if chained else res)
+    if chained:
+        y = apply_epilogue(y, p.get("b"), activation, res)
     return y.reshape(*lead, N).to(x.dtype)
 
 
 def _quire_linear(p: dict, x: torch.Tensor, policy: TransPolicy, fmt: PositFmt, es, *,
-                  activation: str, residual: Optional[torch.Tensor]) -> torch.Tensor:
+                  activation: str, residual: Optional[torch.Tensor],
+                  packed: bool) -> torch.Tensor:
     """dataflow="quire" lowering of a posit-coded linear.
 
     Activations encode once into ``policy.activations`` (the weight format
     when unset) through the encode kernel; every product lands exactly in a
-    quire, and the single terminal rounding reads out into f32 for the fused
-    bias/activation/residual epilogue: no float matmul anywhere.
+    quire (packed lanes split into p8 codes first), and the single terminal
+    rounding reads out into f32 for the bias/activation/residual epilogue:
+    no float matmul anywhere.
     """
     afmt = policy.activations if policy.activations is not None else fmt
     slots = OperandSlots(rs1=afmt, rs2=fmt, rd=F32, dataflow="quire",
-                         codec_impl=policy.codec_impl)
+                         codec_impl=policy.codec_impl, rs2_packed=packed)
+    w = p["w_packed"] if packed else p["w_codes"]
     K = x.shape[-1]
-    N = p["w_codes"].shape[-1]
+    N = w.shape[-1]
     res2 = None
     if residual is not None:
         res2 = residual.expand(*x.shape[:-1], N).reshape(-1, N).to(torch.float32).contiguous()
     a_codes = codec_ops.encode(x.reshape(-1, K).to(torch.float32).contiguous(), afmt.es,
-                               nbits=afmt.nbits)
-    y = posit_dot(a_codes, p["w_codes"], slots, es_b=es, bias=p.get("b"),
-                  activation=activation, residual=res2)
+                               nbits=afmt.nbits, codec_impl=policy.codec_impl)
+    y = posit_dot(a_codes, w, slots, es_b=es, bias=p.get("b"), activation=activation,
+                  residual=res2, epilogue=policy.epilogue)
     return y.reshape(*x.shape[:-1], N).to(x.dtype)
 
 
+_WEIGHT_KEYS = ("w", "w_codes", "w_packed")
+
+
 def _walk_linears(tree, path=""):
-    """Yield (path, parent) for every linear-shaped param dict."""
+    """Yield (path, parent) for every linear-shaped param dict, float or
+    quantized."""
     if isinstance(tree, dict):
-        if "w" in tree and getattr(tree["w"], "ndim", 0) >= 2:
+        if any(getattr(tree.get(k), "ndim", 0) >= 2 for k in _WEIGHT_KEYS):
             yield path, tree
         for k, v in tree.items():
-            if k != "w":
+            if k not in _WEIGHT_KEYS:
                 yield from _walk_linears(v, f"{path}/{k}" if path else k)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _walk_linears(v, f"{path}/{i}" if path else str(i))
 
 
-def quantize_params(params, policy: TransPolicy):
-    """Quantize every linear weight to ``policy.weights`` (in place on a copy
-    of the dict/list spine; leaves are shared, float masters untouched)."""
+def quantize_params(params, policy):
+    """Quantize every float linear weight to its layer's format (per-layer
+    under a ``PrecisionPolicy``): packed lanes where the resolved policy packs
+    p8 weights and the contraction dim is even, plain codes otherwise, left
+    float without a posit weight format. Works on a copy of the dict/list
+    spine; leaves are shared, float masters untouched."""
     out = _copy_dicts(params)
-    fmt = policy.weights
-    if fmt is None:
-        return out
-    for _, parent in _walk_linears(out):
-        q = quantize_linear(parent, fmt, packed=policy.pack_weights)
-        parent.pop("w")
-        parent.update(q)
+    for path, parent in _walk_linears(out):
+        if "w" not in parent:
+            continue
+        q = _quantize_resolved(parent, resolve_policy(policy, path))
+        if q is not parent:
+            parent.pop("w")
+            parent.update(q)
     return out
+
+
+def policy_weight_bytes(params, policy) -> dict:
+    """Linear-weight bytes at rest under ``policy`` against f32 (the paper's
+    Table-IV saving at model scale); packed p8 counts one byte a value.
+    ``params`` may be float or already quantized."""
+    f32_b = policy_b = 0
+    for path, parent in _walk_linears(params):
+        n = (parent["w_packed"].numel() * 2 if "w_packed" in parent
+             else (parent["w_codes"] if "w_codes" in parent else parent["w"]).numel())
+        f32_b += 4 * n
+        fmt = resolve_policy(policy, path).weights
+        policy_b += n * (fmt.storage_bytes if fmt is not None else 4)
+    return {"weight_bytes_f32": f32_b, "weight_bytes_policy": policy_b}
 
 
 def _copy_dicts(tree):
@@ -212,22 +281,23 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 # -------------------------------------------------------------------- MLPs ----
 
-def init_swiglu(gen: torch.Generator, d: int, f: int, *, device="cpu",
-                wfmt: Optional[PositFmt] = None) -> dict:
+def init_swiglu(gen: torch.Generator, d: int, f: int, *, device="cpu", policy=None,
+                path: str = "mlp") -> dict:
+    kw = dict(device=device, policy=policy)
     return {
-        "gate": init_linear(gen, d, f, device=device, wfmt=wfmt),
-        "up": init_linear(gen, d, f, device=device, wfmt=wfmt),
-        "down": init_linear(gen, f, d, scale=f ** -0.5, device=device, wfmt=wfmt),
+        "gate": init_linear(gen, d, f, path=f"{path}/gate", **kw),
+        "up": init_linear(gen, d, f, path=f"{path}/up", **kw),
+        "down": init_linear(gen, f, d, scale=f ** -0.5, path=f"{path}/down", **kw),
     }
 
 
-def apply_swiglu(p: dict, x: torch.Tensor, policy: TransPolicy, *,
-                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+def apply_swiglu(p: dict, x: torch.Tensor, policy, *,
+                 residual: Optional[torch.Tensor] = None, path: str = "mlp") -> torch.Tensor:
     """silu fuses into the gate GEMM's epilogue; an optional block residual
     fuses into the down projection."""
-    g = apply_linear(p["gate"], x, policy, activation="silu")
-    u = apply_linear(p["up"], x, policy)
-    return apply_linear(p["down"], g * u, policy, residual=residual)
+    g = apply_linear(p["gate"], x, policy, activation="silu", path=f"{path}/gate")
+    u = apply_linear(p["up"], x, policy, path=f"{path}/up")
+    return apply_linear(p["down"], g * u, policy, residual=residual, path=f"{path}/down")
 
 
 # -------------------------------------------------------------- embeddings ----

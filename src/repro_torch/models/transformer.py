@@ -36,25 +36,28 @@ def attn_cfg(cfg: ModelCfg) -> AttnCfg:
 
 def init_lm(gen: torch.Generator, cfg: ModelCfg, *, device="cuda",
             policy: Optional[TransPolicy] = None) -> dict:
-    """Random parameters from ``gen`` (a generator on ``device``). With a
-    posit ``policy.weights`` every linear is quantized as soon as it is
-    drawn, so the peak memory is one f32 linear above the codes (a
+    """Random parameters from ``gen`` (a generator on ``device``). Under a
+    posit policy every linear is quantized as soon as it is drawn, to the
+    format its param-tree path resolves to (``blocks/attn/wq``, ...,
+    ``lm_head``: a ``PrecisionPolicy`` may give each its own, packed lanes
+    included), so the peak memory is one f32 linear above the codes (a
     full-size model never exists in f32)."""
     _require_dense(cfg)
     device = resolve_device(device)
-    wfmt = policy.weights if policy is not None else None
     acfg = attn_cfg(cfg)
     params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, device=device)}
     params["blocks"] = [
         {"ln1": init_rmsnorm(cfg.d_model, device=device),
-         "attn": attn.init_attention(gen, acfg, device=device, wfmt=wfmt),
+         "attn": attn.init_attention(gen, acfg, device=device, policy=policy,
+                                     path="blocks/attn"),
          "ln2": init_rmsnorm(cfg.d_model, device=device),
-         "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device, wfmt=wfmt)}
+         "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device, policy=policy,
+                            path="blocks/mlp")}
         for _ in range(cfg.n_layers)]
     params["final_norm"] = init_rmsnorm(cfg.d_model, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab, device=device,
-                                        wfmt=wfmt)
+                                        policy=policy, path="lm_head")
     return params
 
 
@@ -62,7 +65,7 @@ def logits_fn(params: dict, h: torch.Tensor, cfg: ModelCfg,
               policy: TransPolicy) -> torch.Tensor:
     if cfg.tie_embeddings:
         return embedding_logits(params["embed"], h)
-    return apply_linear(params["lm_head"], h, policy).to(torch.float32)
+    return apply_linear(params["lm_head"], h, policy, path="lm_head").to(torch.float32)
 
 
 def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,
@@ -100,9 +103,9 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the block residuals fuse into the wo and down projections' epilogues
         x, _ = attn.decode_attention_step(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
-                                          lens, policy, rope=rope, residual=x)
+                                          lens, policy, rope=rope, residual=x, path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = apply_swiglu(p["mlp"], h, policy, residual=x)
+        x = apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
     h = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_fn(params, h, cfg, policy)[:, 0]
     cache["pos"] += 1
@@ -125,9 +128,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPoli
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the block residuals fuse into the wo and down projections' epilogues
         x, _ = attn.prefill_attention(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
-                                      policy, residual=x)
+                                      policy, residual=x, path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = apply_swiglu(p["mlp"], h, policy, residual=x)
+        x = apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
     h = apply_rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = logits_fn(params, h, cfg, policy)[:, 0]
     cache["pos"].fill_(S)

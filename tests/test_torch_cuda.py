@@ -11,7 +11,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.configs import get_arch
-from repro_torch.core.pcsr import P8_SERVE, parse_policy
+from repro_torch.core.pack import pack_p8, unpack_p8
+from repro_torch.core.pcsr import P8_SERVE, OperandSlots, parse_policy
+from repro_torch.core.policy import get_precision_policy
 from repro_torch.core.types import BF16, F32, P8_0, P8_1, P8_2, P8_3, P16_1
 from repro_torch.kernels.posit_attention import ops as attn_ops
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref
@@ -19,7 +21,7 @@ from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.kernels.posit_codec import ref as codec_ref
 from repro_torch.kernels.posit_gemm.ops import posit_gemm
 from repro_torch.kernels.posit_gemm.ref import posit_gemm_ref
-from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm
+from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm, quire_gemm
 from repro_torch.kernels.posit_quire_gemm.ref import posit_quire_gemm_ref
 from repro_torch.kernels.posit_softmax.ops import softmax
 from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref
@@ -117,6 +119,57 @@ def test_gemm_decode_rows_batch_invariant(dev, K, N):
         assert torch.equal(part, full[:M])
     again = posit_gemm(a, b, (0, 0, 0), bias=bias, residual=res, **kw).view(torch.int32)
     assert torch.equal(again, full)
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64])
+@pytest.mark.parametrize("K,N", [(999, 1001), (1030, 1000), (640, 384), (5120, 264)])
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32], ids=["tc", "fma"])
+def test_packed_gemm_kernel_matches_plain(dev, M, K, N, cd):
+    """The packed variants (tensor cores under bf16 compute, f32 FMA under
+    f32) against the packed plain version and against the unpacked kernel on
+    ``unpack_p8`` of the same codes, at odd and even K, ragged N, decode and
+    prefill rows; each launch counts under its own variant."""
+    a, b, bias, res = _gemm_operands(dev, M, K, N, P8_2, M + K + 1)
+    bp = pack_p8(b)
+    kw = dict(a_fmt=F32, b_fmt=P8_2, out_fmt=F32, bias=bias, residual=res,
+              activation="silu", compute_dtype=cd)
+    name = "posit_gemm_packed" if cd == torch.bfloat16 else "posit_gemm_packed_fma"
+    before = dict(kernels.LAUNCHES)
+    got = posit_gemm(a, bp, (0, 2, 0), b_packed=True, **kw)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"]
+    bvals = codec_ref.decode_ref(b, 2, nbits=8)
+    tol = 4 * K * U * (a.to(cd).float().abs() @ bvals.abs() + bias.abs()) \
+        + 16 * U * (got.abs() + res.abs())
+    for want in (posit_gemm_ref(a, bp, (0, 2, 0), b_packed=True, **kw),
+                 posit_gemm(a, unpack_p8(bp, K).contiguous(), (0, 2, 0), **kw)):
+        assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("K,N", [(5120, 13824), (13824, 5120), (777, 1001)])
+@pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32], ids=["tc", "fma"])
+def test_packed_gemm_decode_rows_batch_invariant(dev, K, N, cd):
+    """Packed decode rows (M <= 8) are bit for bit the same whatever the batch."""
+    a, b, bias, res = _gemm_operands(dev, 8, K, N, P8_0, 5)
+    bp = pack_p8(b)
+    kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation="silu", compute_dtype=cd,
+              b_packed=True)
+    full = posit_gemm(a, bp, (0, 0, 0), bias=bias, residual=res, **kw).view(torch.int32)
+    for M in (1, 4):
+        part = posit_gemm(a[:M].contiguous(), bp, (0, 0, 0), bias=bias,
+                          residual=res[:M].contiguous(), **kw).view(torch.int32)
+        assert torch.equal(part, full[:M])
+
+
+@pytest.mark.parametrize("M", [1, 4, 13])
+def test_quire_gemm_packed_b_same_bits(dev, M):
+    """A packed rs2 through the quire front door gives the unpacked bits."""
+    K, N = 1001, 301
+    g = torch.Generator(device=dev).manual_seed(M + 40)
+    a, b = _quire_operands(g, dev, M, K, N, P16_1, P8_0)
+    slots = OperandSlots(rs1=P16_1, rs2=P8_0, rd=F32, dataflow="quire")
+    got = quire_gemm(a, pack_p8(b), slots.with_packed()).view(torch.int32)
+    assert torch.equal(got, quire_gemm(a, b, slots).view(torch.int32))
 
 
 @pytest.mark.parametrize("Hq,Hkv,d,kv_bits", [(10, 2, 64, 8), (32, 32, 96, 16)])
@@ -286,3 +339,22 @@ def test_reduced_quire_engine_on_card(dev):
     assert len(done) == 3 and all(len(c.tokens) == 4 for c in done)
     assert kernels.LAUNCHES["posit_quire_gemm"] > 0 and kernels.LAUNCHES["posit_gemm"] == 0
     assert kernels.LAUNCHES["posit_attention"] > 0 and kernels.LAUNCHES["posit_encode"] > 0
+
+
+@pytest.mark.parametrize("base", [P8_SERVE, parse_policy("none")], ids=["p8-serve", "f32"])
+def test_reduced_mixed_precision_engine_on_card(dev, base):
+    """The reduced qwen2.5-14b under attn-p16-mlp-p8: p16 attention on the
+    unpacked kernel, MLP and head on the packed variant of the base's
+    compute dtype."""
+    cfg = get_arch("qwen2.5-14b").reduced()
+    pol = get_precision_policy("attn-p16-mlp-p8", base=base)
+    model = build_model(cfg)
+    params = model.init(0, pol)
+    assert "w_packed" in params["blocks"][0]["mlp"]["up"]
+    eng = ContinuousBatchingEngine(model, params, pol, max_slots=2, S_max=20)
+    kernels.reset_launches()
+    done = eng.run(poisson_requests(3, arrival_rate=0.0, prompt_lens=(8,),
+                                    max_new_tokens=4, vocab=cfg.vocab))
+    assert len(done) == 3 and all(len(c.tokens) == 4 for c in done)
+    packed = "posit_gemm_packed" if base.compute_dtype == "bf16" else "posit_gemm_packed_fma"
+    assert kernels.LAUNCHES[packed] > 0 and kernels.LAUNCHES["posit_gemm"] > 0

@@ -69,7 +69,7 @@ def _values(a, fmt_name):
     return np.asarray(a, np.float64)
 
 
-def _check(got, want, out_fmt_name, a_vals, b_vals, bias, res):
+def _check(got, want, out_fmt_name, a_vals, b_vals, bias, res, k=K):
     out_fmt = jtypes.get_format(out_fmt_name)
     if isinstance(out_fmt, jtypes.PositFmt):
         n = out_fmt.nbits
@@ -78,7 +78,7 @@ def _check(got, want, out_fmt_name, a_vals, b_vals, bias, res):
         return
     want = np.asarray(want, np.float64)
     scale = np.abs(a_vals) @ np.abs(b_vals) + (0 if bias is None else np.abs(bias))
-    tol = 4 * K * U * scale + 16 * U * (np.abs(want) + (0 if res is None else np.abs(res)))
+    tol = 4 * k * U * scale + 16 * U * (np.abs(want) + (0 if res is None else np.abs(res)))
     err = np.abs(np.asarray(got, np.float64) - want)
     assert (err <= tol).all(), float((err / tol).max())
 
@@ -166,6 +166,16 @@ def test_format_pair_plan_matches_reference():
             got = format_pair_plan(types.get_format(a), types.get_format(b))
             assert str(got.compute_dtype).endswith(want.compute_dtype_name), (a, b)
             assert (got.decode_a, got.decode_b) == (want.decode_a, want.decode_b)
+            assert got.packed_b is want.packed_b is False
+            if b.startswith("p8"):   # packed lanes: p8's plan, decoding both lanes
+                want = jax_plan(JaxSlots(rs1=jtypes.get_format(a), rs2=jtypes.get_format(b),
+                                         rs2_packed=True))
+                got = format_pair_plan(types.get_format(a), types.get_format(b), packed_b=True)
+                assert str(got.compute_dtype).endswith(want.compute_dtype_name), (a, b)
+                assert got.packed_b is want.packed_b is True
+            else:
+                with pytest.raises(ValueError):
+                    format_pair_plan(types.get_format(a), types.get_format(b), packed_b=True)
 
 
 QWEN_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
@@ -234,20 +244,150 @@ def test_fma_split_plan_covers_k(M, K, N):
 
 @pytest.mark.parametrize("a_fmt,b_fmt,cd,want", [
     ("f32", "p8_0", "bf16", True), ("bf16", "p8_3", "bf16", True), ("p8_0", "p8_0", "bf16", True),
+    ("f32", "packed", "bf16", True), ("p8_0", "packed", "bf16", True),
+    ("f32", "packed", "f32", False), ("p16_1", "packed", "bf16", False),
     ("f32", "bf16", "bf16", True), ("p16_1", "p8_0", "bf16", False),
     ("f32", "p8_0", "f32", False), ("f32", "p16_1", "bf16", False),
     ("f32", "f32", "bf16", False)])
 def test_tensor_core_pairs(a_fmt, b_fmt, cd, want):
     """The pairs that go to the bf16 tensor cores: bf16 compute, B p8 or bf16,
     A f32/bf16/p8; p16 or f32 B and f32 compute stay on the FMA kernels."""
-    kind = {"f32": 0, "bf16": 1, "p8_0": 2, "p8_3": 2, "p16_1": 3}
+    kind = {"f32": 0, "bf16": 1, "p8_0": 2, "p8_3": 2, "p16_1": 3, "packed": 4}
     assert uses_tensor_cores(kind[a_fmt], kind[b_fmt], cd == "bf16") is want
 
 
 def test_unported_variants_raise():
+    """What stays unported raises: ``posit_dot`` outside the quire (the port
+    reaches those dataflows through ``gemm`` and ``posit_matmul_wx``). Packed
+    B, once refused here, is ported: the slot-driven front door takes it and
+    gives the packed plain version's bits (held against the Pallas
+    ``b_packed`` kernel in ``test_packed_gemm_matches_pallas``). A packed B
+    of the wrong height, a packed non-p8 slot and an unknown activation are
+    refused."""
+    from repro_torch.core.dot import posit_dot
+    from repro_torch.core.pack import pack_p8
+
     a = torch.zeros((2, 4), dtype=torch.uint8)
     with pytest.raises(NotImplementedError):
-        gemm(a, a.T.contiguous(), OperandSlots(rs1=types.P8_0, rs2=types.P8_0, rs2_packed=True))
+        posit_dot(a, a.T.contiguous(), OperandSlots.uniform(types.P8_0))
     with pytest.raises(ValueError):
         posit_gemm(a, a.T.contiguous(), (0, 0, 0), a_fmt=types.P8_0, b_fmt=types.P8_0,
                    out_fmt=types.F32, activation="tanh")
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.integers(0, 256, (3, 7)).astype(np.uint8))
+    w = torch.from_numpy(rng.integers(0, 256, (7, 5)).astype(np.uint8))
+    slots = OperandSlots(rs1=types.P8_0, rs2=types.P8_1, rd=types.P16_1, rs2_packed=True)
+    got = gemm(x, pack_p8(w), slots, activation="relu")
+    want = posit_gemm(x, pack_p8(w), (0, 1, 1), a_fmt=types.P8_0, b_fmt=types.P8_1,
+                      out_fmt=types.P16_1, activation="relu", b_packed=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    with pytest.raises(ValueError):   # 7 rows need ceil(7/2) = 4 packed rows
+        posit_gemm(x, pack_p8(w)[:3].contiguous(), (0, 0, 0), a_fmt=types.P8_0,
+                   b_fmt=types.P8_0, out_fmt=types.F32, b_packed=True)
+    with pytest.raises(ValueError):
+        posit_gemm(x.float(), pack_p8(w), (0, 0, 0), a_fmt=types.F32, b_fmt=types.P16_1,
+                   out_fmt=types.F32, b_packed=True)
+
+
+# (name, a_fmt, out_fmt, activation, bias, residual, K): packed p8 B against
+# A of every kind the layers feed it; odd K pads the packed B's last high lane
+PACKED_CASES = [
+    ("f32-odd", "f32", "f32", "silu", True, True, 71),
+    ("f32-even", "f32", "f32", "none", False, False, 70),
+    ("bf16", "bf16", "f32", "gelu", True, False, 70),
+    ("p8-out", "p8_0", "p8_2", "relu", True, True, 71),
+    ("p16", "p16_1", "p16_1", "none", False, True, 33),
+]
+
+
+@pytest.mark.parametrize("codec_impl", ["bits", "lut"])
+@pytest.mark.parametrize("case", PACKED_CASES, ids=lambda c: c[0])
+def test_packed_gemm_matches_pallas(case, codec_impl):
+    """The packed plain version (split A, two contractions) against the
+    interpret-mode Pallas kernel with ``b_packed=True``, whose lane decode is
+    the (4, 256) table input under "lut" and the bit pipeline under "bits";
+    within the module's tolerance, and within it of the unpacked plain
+    version on ``unpack_p8`` of the same codes."""
+    from repro.core.pack import pack_p8 as jax_pack
+    from repro_torch.core.pack import unpack_p8
+
+    _, a_name, o_name, act, has_bias, has_res, k = case
+    rng = np.random.default_rng(k + len(a_name))
+    a = _operand(a_name, (M, k), rng, 1.0)
+    w = _operand("p8_1", (k, N), rng, k ** -0.5)
+    bp = np.asarray(jax_pack(jnp.asarray(w)))
+    bias = rng.normal(0, 0.1, (N,)).astype(np.float32) if has_bias else None
+    res = rng.normal(0, 1.0, (M, N)).astype(np.float32) if has_res else None
+    jf = [jtypes.get_format(x) for x in (a_name, "p8_1", o_name)]
+    es = [getattr(f, "es", 0) for f in jf]
+    want = np.asarray(jax_posit_gemm(
+        jnp.asarray(a), jnp.asarray(bp), jnp.asarray(es, jnp.int32),
+        a_fmt=jf[0], b_fmt=jf[1], out_fmt=jf[2],
+        bias=None if bias is None else jnp.asarray(bias),
+        residual=None if res is None else jnp.asarray(res), activation=act,
+        block_m=8, block_n=128, block_k=128, interpret=True, b_packed=True,
+        codec_impl=codec_impl))
+    tf = [types.get_format(x) for x in (a_name, "p8_1", o_name)]
+    kw = dict(a_fmt=tf[0], b_fmt=tf[1], out_fmt=tf[2],
+              bias=None if bias is None else torch.from_numpy(bias),
+              residual=None if res is None else torch.from_numpy(res), activation=act)
+    got = posit_gemm(_to_torch(a), torch.from_numpy(bp), es, b_packed=True,
+                     codec_impl=codec_impl, **kw).numpy()
+    assert got.shape == (M, N) and got.dtype == want.dtype
+    _check(got, want, o_name, _values(a, a_name), _values(w, "p8_1"), bias, res, k)
+    unpacked = posit_gemm(_to_torch(a), unpack_p8(torch.from_numpy(bp), k), es, **kw)
+    _check(got, unpacked.numpy(), o_name, _values(a, a_name), _values(w, "p8_1"), bias, res,
+           k)
+
+
+@pytest.mark.parametrize("w_name,cd", [("p8_0", "bf16"), ("p8_2", "f32")])
+@pytest.mark.parametrize("epilogue", ["fused", "chained"])
+def test_matmul_wx_packed_and_chained_match_reference(w_name, cd, epilogue):
+    """``posit_matmul_wx(packed=True)`` and ``epilogue="chained"`` against the
+    reference's ``posit_matmul_wx`` with the same knobs (x (batch, seq, K),
+    even K as ``quantize_params`` packs)."""
+    from repro.core.pack import pack_p8 as jax_pack
+
+    rng = np.random.default_rng(17)
+    x = rng.normal(0, 1, (2, 3, 64)).astype(np.float32)
+    w = _operand(w_name, (64, N), rng, 64 ** -0.5)
+    wp = np.asarray(jax_pack(jnp.asarray(w)))
+    bias = rng.normal(0, 0.1, (N,)).astype(np.float32)
+    res = rng.normal(0, 1, (2, 3, N)).astype(np.float32)
+    jdt = jnp.bfloat16 if cd == "bf16" else jnp.float32
+    tdt = torch.bfloat16 if cd == "bf16" else torch.float32
+    jw = jtypes.get_format(w_name)
+    outs = []
+    for packed, wc in ((True, wp), (False, w)):
+        want = np.asarray(jax_matmul_wx(jnp.asarray(x).astype(jdt), jnp.asarray(wc), jw,
+                                        compute_dtype=jdt, out_dtype=jnp.float32,
+                                        bias=jnp.asarray(bias), activation="silu",
+                                        residual=jnp.asarray(res), epilogue=epilogue,
+                                        packed=packed))
+        got = posit_matmul_wx(torch.from_numpy(x).to(tdt), torch.from_numpy(wc),
+                              types.get_format(w_name), compute_dtype=tdt,
+                              out_dtype=torch.float32, bias=torch.from_numpy(bias),
+                              activation="silu", residual=torch.from_numpy(res),
+                              epilogue=epilogue, packed=packed).numpy()
+        assert got.shape == (2, 3, N)
+        xa = np.asarray(jnp.asarray(x).astype(jdt), np.float64).reshape(-1, 64)
+        _check(got.reshape(-1, N), want.reshape(-1, N), "f32", xa, _values(w, w_name),
+               bias, res.reshape(-1, N), 64)
+        outs.append(got)
+    # packing changes the words moved, never the numerics (within tolerance)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("M", [1, 8, 9, 64])
+@pytest.mark.parametrize("K", [5120, 13824, 71])
+def test_packed_split_plans_walk_the_packed_rows(M, K):
+    """A packed B's plans walk ceil(K/2) packed rows: 64-row steps for the
+    tensor-core kernel (one plan for every M <= 8), K splits over the packed
+    rows for the FMA kernels."""
+    kh = (K + 1) // 2
+    plan = split_plan(M, 13824, kh, SMS)
+    assert plan.steps * TC_STEP >= kh > (plan.steps - 1) * TC_STEP
+    if M <= 8:
+        assert plan == split_plan(1, 13824, kh, SMS)
+    splits, kps = fma_split_plan(M, 5120, kh, SMS)
+    assert splits * kps >= kh > (splits - 1) * kps

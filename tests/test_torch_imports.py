@@ -21,8 +21,10 @@ from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.core.device import resolve_device
-from repro_torch.core.types import P8_0
+from repro_torch.core.pack import pack_p8
+from repro_torch.core.types import F32, P8_0
 from repro_torch.kernels.posit_codec import ops as codec_ops
+from repro_torch.kernels.posit_gemm.ops import posit_gemm
 from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm
 from repro_torch.kernels.posit_softmax import ops as softmax_ops
 from repro_torch.launch import serve as serve_mod
@@ -57,6 +59,7 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"codec.py", "quire.py", "ops.py", "engine.py", "serve.py", "chip_smoke.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"lut.py", "pack.py", "policy.py"} <= names
     for kernel in ("posit_quire_gemm", "posit_softmax"):
         for mod in ("__init__.py", "ops.py", "ref.py"):
             assert f"src/repro_torch/kernels/{kernel}/{mod}" in rel
@@ -101,8 +104,12 @@ def test_cpu_tensors_take_the_plain_version():
     w = codes.reshape(8, 8).contiguous()
     posit_quire_gemm(w, w, (0, 0, 0), a_fmt=P8_0, b_fmt=P8_0, out_fmt=P8_0)
     softmax_ops.softmax(w, 0, nbits=8)
+    for cd in (torch.bfloat16, torch.float32):   # both packed variants' routes
+        posit_gemm(w.float(), pack_p8(w), (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
+                   compute_dtype=cd, b_packed=True)
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {"posit_decode", "posit_encode", "posit_gemm",
+                                     "posit_gemm_packed", "posit_gemm_packed_fma",
                                      "posit_attention", "posit_quire_gemm", "posit_softmax"}
 
 

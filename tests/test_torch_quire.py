@@ -338,11 +338,55 @@ def test_quire_front_doors_refuse_what_they_cannot_take():
         posit_quire_gemm(a, a.T.contiguous(), (1, 1, 1), a_fmt=types.P16_1,
                          b_fmt=types.P16_1, out_fmt=types.BF16)
     with pytest.raises(NotImplementedError):
-        quire_gemm(a.to(torch.uint8), a.T.contiguous().to(torch.uint8),
-                   pcsr.OperandSlots(rs1=types.P8_0, rs2=types.P8_0, dataflow="quire",
-                                     rs2_packed=True))
-    with pytest.raises(NotImplementedError):
         posit_dot(a, a.T.contiguous(), pcsr.OperandSlots.uniform(types.P16_1))
+    # packed p8 B, once refused, is ported: it unpacks ahead of the quire
+    # (held against the reference in test_quire_gemm_packed_b_bit_exact)
+    from repro_torch.core.pack import pack_p8
+    rng = np.random.default_rng(3)
+    a8 = _t(rng.integers(0, 256, (2, 5)).astype(np.uint8))
+    b8 = _t(rng.integers(0, 256, (5, 3)).astype(np.uint8))
+    slots = pcsr.OperandSlots(rs1=types.P8_0, rs2=types.P8_0, dataflow="quire")
+    np.testing.assert_array_equal(quire_gemm(a8, pack_p8(b8), slots.with_packed()).numpy(),
+                                  quire_gemm(a8, b8, slots).numpy())
+
+
+@pytest.mark.parametrize("k", [33, 64])
+@pytest.mark.parametrize("a_fmt,rd", [("p16_1", "p16_1"), ("p8_2", "p8_0"), ("p8_0", "f32")])
+def test_quire_gemm_packed_b_bit_exact(k, a_fmt, rd):
+    """A packed rs2 through the quire (``quire_gemm``, ``gemm`` and
+    ``posit_dot``, fused and chained epilogues) gives the reference's
+    ``posit_dot(dataflow="quire")`` bits on the same packed operand, and the
+    same bits as the unpacked codes: the quire's sum does not depend on the
+    layout. Odd K unpacks to K rows (the pad row is trimmed)."""
+    from repro.core.pack import pack_p8 as jax_pack
+    from repro_torch.core.pack import pack_p8
+
+    rng = np.random.default_rng(k)
+    ja, jd = jtypes.get_format(a_fmt), jtypes.get_format(rd)
+    a = _codes(rng, ja.nbits, ja.es, (5, k))
+    b = _codes(rng, 8, 1, (k, 7), scale=k ** -0.5)
+    bp = np.asarray(jax_pack(jnp.asarray(b)))
+    jslots = jpcsr.OperandSlots(rs1=ja, rs2=jtypes.P8_1, rd=jd, dataflow="quire",
+                                rs2_packed=True)
+    want = np.asarray(jax_posit_dot(jnp.asarray(a), jnp.asarray(bp), jslots))
+    tslots = pcsr.OperandSlots(rs1=types.get_format(a_fmt), rs2=types.P8_1,
+                               rd=types.get_format(rd), dataflow="quire", rs2_packed=True)
+    np.testing.assert_array_equal(pack_p8(_t(b)).numpy(), bp)
+    def bits(x):
+        return x.view(np.uint32) if rd == "f32" else x
+
+    for got in (quire_gemm(_t(a), _t(bp), tslots), gemm(_t(a), _t(bp), tslots),
+                posit_dot(_t(a), _t(bp), tslots),
+                quire_gemm(_t(a), _t(b), tslots.with_packed(False))):
+        np.testing.assert_array_equal(bits(got.numpy()), bits(want))
+    # the epilogue: fused in the kernel, or chained after an f32 readout
+    bias = rng.normal(0, 0.1, (7,)).astype(np.float32)
+    want_b = np.asarray(jax_posit_dot(jnp.asarray(a), jnp.asarray(bp), jslots,
+                                      bias=jnp.asarray(bias), activation="relu"))
+    for epilogue in ("fused", "chained"):
+        got = posit_dot(_t(a), _t(bp), tslots, bias=_t(bias), activation="relu",
+                        epilogue=epilogue).numpy()
+        np.testing.assert_array_equal(got, want_b)
 
 
 def test_plain_route_and_split_plan():
