@@ -7,8 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. the codec kernels against their plain versions, exhaustively, bit-exact;
   3. the posit GEMM kernel against its plain version at the serving shapes
      of qwen2.5-14b (decode and prefill), ragged shapes, p8 at es 0-3, bf16
-     weights and p16 weights (the f32-FMA kernels, M = 4 and 64); its
-     decode rows bit for bit the same at M = 1, 4 and 8;
+     weights and p16 weights under f32 compute (the f32-FMA kernels, M = 4
+     and 64); its decode rows bit for bit the same at M = 1, 4 and 8;
+     p16 weights on the tensor cores (bf16 compute, the mixed path's
+     q/k/v/o) at both qwen p16 shapes, M = 1, 4, 8 and 64, with f32, bf16
+     and p8 activations, on every code drawn uniformly and with +-maxpos and
+     +-minpos, their decode rows bit for bit the same at M = 1, 4 and 8, and
+     every p16 code at es 0-3 through one-hot rows bit for bit the plain
+     version's bf16 rounding;
      the GEMM's packed-p8 variants (tensor cores under bf16 compute, f32 FMA
      under f32) at every qwen2.5-14b linear shape, M = 8 and 64, against
      the packed plain version and against the unpacked kernel on
@@ -32,27 +38,29 @@ Phases, in order; any failure raises and the script exits non-zero:
        P8_SERVE, 8 requests (prompt 64, gen 16, 4 slots, greedy) through the
        continuous-batching engine;
      - the same under ``--policy p8-serve --precision-policy
-       attn-p16-mlp-p8``: q/k/v/o at p16_1 on the f32-FMA kernel, gate/up/
-       down and lm_head in packed p8 lanes on the packed tensor-core
-       variant, K/V at p8;
+       attn-p16-mlp-p8``: q/k/v/o at p16_1 on the tensor-core kernel's p16
+       route, gate/up/down and lm_head in packed p8 lanes on the packed
+       tensor-core variant, K/V at p8;
      - qwen2.5-14b at full width and depth under attn-p16-mlp-p8 over an f32
        base (``--policy none``), 4 requests (prompt 32, gen 8): the packed
-       lanes on the packed f32-FMA variant;
+       lanes on the packed f32-FMA variant, q/k/v/o on the f32-FMA kernels;
      - phi3-mini-3.8b at full width and depth under
        weights=p16_1,kv=p16_1,dataflow=quire, 4 requests (prompt 32, gen 8,
        4 slots, greedy): every linear through the quire GEMM;
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
      and a profiled decode step of each served model (the P8_SERVE step
-     must run no split-K epilogue kernel; the mixed step 192 p16 FMA and 145
-     packed tensor-core GEMM launches; the quire step one kernel a quire
+     must run no split-K epilogue kernel; the mixed step 192 p16 and 145
+     packed tensor-core GEMM launches, no p16 f32-FMA kernel and no split-K
+     epilogue kernel; the quire step one kernel a quire
      GEMM call, no readout or split-sum kernel), with the quire step's share
      of per-product-branch products;
   6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call; the GEMM also at
      every decode and prefill (M = 64) shape of qwen2.5-14b, its packed
-     variants there beside the unpacked kernel, the p16 f32-FMA path at the
-     attention projections' decode shapes, the quire GEMM at every phi3
+     variants there beside the unpacked kernel, the p16 weights (tensor
+     cores under bf16 compute, f32 FMA under f32) at the attention
+     projections' decode and prefill shapes, the quire GEMM at every phi3
      decode (M = 4, lm_head included) and prefill (M = 32) shape.
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
@@ -114,6 +122,7 @@ PHI3 = get_arch("phi3-mini-3.8b")
 QUIRE_SPEC = "weights=p16_1,kv=p16_1,dataflow=quire"
 MIXED = "attn-p16-mlp-p8"     # the per-layer preset of the mixed paths
 GEMM_KN = ((5120, 5120), (5120, 1024), (5120, 13824), (13824, 5120), (5120, 152064))
+P16_KN = ((5120, 5120), (5120, 1024))   # the attention projections' shapes
 PHI3_KN = ((3072, 3072), (3072, 8192), (8192, 3072))
 PHI3_LM_HEAD = (3072, 32064)
 SOFTMAX_SHAPES = ((1024, 8), (1024, 32), (1024, 128), (4, 32064))
@@ -440,6 +449,95 @@ def check_packed_gemm() -> dict:
             "rows": (1, 4, 8), "differing_values": differing}
 
 
+def check_p16_gemm() -> dict:
+    """p16 weights on the tensor cores, as the mixed path calls them (bf16
+    compute; f32 activations and each projection's epilogue: bias on q/k/v,
+    the residual on o): at both qwen p16 shapes, M = 1, 4, 8 and 64, and
+    with bf16 and p8 activations at M = 4 and 64, against the plain version
+    within ``check_gemm``'s bound; on every non-NaR code drawn uniformly,
+    and on Gaussian codes with +-maxpos and +-minpos, likewise; rows at M =
+    1 and 4 bit for bit rows of M = 8; and every p16 code at es 0-3 through
+    one-hot activation rows (M = 8 and 64, one k step), where the kernel's
+    result is the bf16 rounding of the decoded code itself: bit for bit the
+    plain version's. Every launch counts under ``posit_gemm_p16``.
+    ``max_abs_err`` is over the Gaussian cases; the wide-span ones, whose
+    sums reach 2^28, report theirs apart."""
+    rows, worst, edge_worst, worst_ratio, differing, exact_mismatch = [], 0.0, 0.0, 0.0, 0, 0
+    cd = torch.bfloat16
+
+    def run(name, a, a_fmt, b, es_b, bi=None, r=None, act="none"):
+        kw = dict(es=(getattr(a_fmt, "es", 0), es_b, 0), a_fmt=a_fmt, b_fmt=P16_1,
+                  out_fmt=F32, activation=act, compute_dtype=cd)
+        before = dict(kernels.LAUNCHES)
+        got = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=P16_1, out_fmt=F32, bias=bi,
+                         residual=r, activation=act, compute_dtype=cd)
+        assert kernels.LAUNCHES["posit_gemm_p16"] == before["posit_gemm_p16"] + 1, name
+        assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"], name
+        return got, gemm_plain(a, b, bi, r, kw)
+
+    def bounded(name, got, want, a, a_fmt, b, K, bi, r, edge=False):
+        nonlocal worst, edge_worst, worst_ratio
+        c = gemm_bound_check(
+            name, got, want, operand_values(a, a_fmt),
+            lambda sl: operand_values(b[:, sl].contiguous(), P16_1).to(cd).float(), cd, K,
+            bi, r)
+        if edge:
+            edge_worst = max(edge_worst, c["max_abs_err"])
+        else:
+            worst = max(worst, c["max_abs_err"])
+        worst_ratio = max(worst_ratio, c["err_over_bound"])
+        rows.append({"case": name, **c})
+
+    for K, N in P16_KN:
+        bias, res = True, (K, N) == (5120, 5120)
+        for M in (1, 4, 8, 64):
+            a, b, bi, r = make_gemm_inputs(M, K, N, P16_1, torch.float32, bias, res, seed=13)
+            got, want = run(f"p16 tc M{M} {K}x{N}", a, F32, b, 1, bi, r)
+            bounded(f"p16 tc M{M} {K}x{N}", got, want, a, F32, b, K, bi, r)
+            if M == 8:
+                full = bits(got)
+                for m in (1, 4):
+                    part = posit_gemm(a[:m].contiguous(), b, (0, 1, 0), a_fmt=F32, b_fmt=P16_1,
+                                      out_fmt=F32, bias=bi,
+                                      residual=None if r is None else r[:m].contiguous(),
+                                      compute_dtype=cd)
+                    differing += int((bits(part) != full[:m]).sum())
+        for a_dtype, a_fmt in ((torch.bfloat16, BF16), (P8_0, P8_0)):
+            for M in (4, 64):
+                a, b, bi, r = make_gemm_inputs(M, K, N, P16_1, a_dtype, bias, res, seed=14)
+                name = f"p16 tc {a_fmt.name} act M{M} {K}x{N}"
+                got, want = run(name, a, a_fmt, b, 1, bi, r, "silu")
+                bounded(name, got, want, a, a_fmt, b, K, bi, r)
+        del a, b, bi, r, got, want
+    g = gen(15)
+    for name, M, (K, N), kind in (("p16 all codes M4", 4, P16_KN[1], "all_codes"),
+                                  ("p16 minmax M8", 8, P16_KN[0], "minmax")):
+        a = torch.randn((M, K), generator=g, device=DEV)
+        b = _quire_codes(g, (K, N), P16_1, kind, scale=K ** -0.5).to(torch.uint16)
+        got, want = run(name, a, F32, b, 1)
+        bounded(f"{name} {K}x{N}", got, want, a, F32, b, K, None, None, edge=True)
+    # every code: 65,535 non-NaR codes and a zero in K rows, plus 8 columns
+    # of zeros whose first holds NaR (its column reads NaN in every row)
+    codes = torch.arange(1 << 16, device=DEV, dtype=torch.int32)
+    codes = torch.cat([codes[codes != 0x8000], codes.new_zeros(1)])
+    for es in range(4):
+        for M in (8, 64):
+            b = torch.cat([codes.reshape(M, -1), codes.new_zeros((M, 8))], dim=1)
+            b[0, -8] = 0x8000
+            b = b.to(torch.uint16).contiguous()
+            a = torch.eye(M, device=DEV)
+            got, want = run(f"p16 every code es{es} M{M}", a, F32, b, es)
+            same = (bits(got) == bits(want)) | (got.isnan() & want.isnan())
+            exact_mismatch += int((~same).sum())
+    assert differing == 0, f"p16 GEMM decode rows depend on the batch: {differing} differ"
+    assert exact_mismatch == 0, f"p16 tensor-core decode: {exact_mismatch} codes differ"
+    torch.cuda.empty_cache()
+    DETAILS["p16_gemm_checks"] = rows
+    return {"cases": len(rows), "max_abs_err": worst, "wide_span_max_abs_err": edge_worst,
+            "max_err_over_bound": worst_ratio, "rows": (1, 4, 8),
+            "differing_values": differing, "every_code_mismatches": exact_mismatch}
+
+
 def check_quire_packed() -> dict:
     """The quire GEMM through its front door on packed p8 weights gives the
     bits of the same codes unpacked (the quire's sum does not depend on the
@@ -736,9 +834,9 @@ def run_main_path() -> tuple[dict, dict]:
 def run_mixed_path() -> tuple[dict, dict]:
     """qwen2.5-14b at full width and depth under ``--policy p8-serve
     --precision-policy attn-p16-mlp-p8``: the attention projections at p16
-    on the unpacked kernel's f32-FMA datapath, the MLP and lm_head in packed
-    p8 lanes on the packed tensor-core variant, K/V at p8. The packed f32-FMA
-    variant must not launch."""
+    on the tensor-core kernel's p16 route, the MLP and lm_head in packed p8
+    lanes on the packed tensor-core variant, K/V at p8. Neither f32-FMA
+    route (unpacked or packed) may launch."""
     events = []
     kernels.reset_launches()
     report = serve("qwen2.5-14b", policy="p8-serve", precision_policy=MIXED, max_slots=4,
@@ -746,9 +844,10 @@ def run_mixed_path() -> tuple[dict, dict]:
                    emit=events.append)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    for name in ("posit_gemm", "posit_gemm_packed", "posit_encode", "posit_attention"):
+    for name in ("posit_gemm_p16", "posit_gemm_packed", "posit_encode", "posit_attention"):
         assert launches[name] > 0, f"kernel {name} was not launched on the mixed path"
     assert launches["posit_gemm_packed_fma"] == 0, "the packed FMA variant ran on bf16 compute"
+    assert launches["posit_gemm"] == 0, "a p16 projection left the tensor cores"
     assert report["requests"] == 8, report["requests"]
     assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
     assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the mixed path"
@@ -766,7 +865,8 @@ def run_mixed_path() -> tuple[dict, dict]:
 def run_mixed_fma_path() -> tuple[dict, dict]:
     """qwen2.5-14b at full width and depth under ``--policy none
     --precision-policy attn-p16-mlp-p8`` (f32 compute, f32 KV cache): the
-    packed lanes on the packed f32-FMA variant, the tensor-core one idle."""
+    packed lanes on the packed f32-FMA variant and the p16 projections on the
+    f32-FMA kernels, the tensor-core routes idle."""
     events = []
     kernels.reset_launches()
     report = serve("qwen2.5-14b", policy="none", precision_policy=MIXED, max_slots=4,
@@ -777,6 +877,7 @@ def run_mixed_fma_path() -> tuple[dict, dict]:
     for name in ("posit_gemm", "posit_gemm_packed_fma", "posit_attention"):
         assert launches[name] > 0, f"kernel {name} was not launched on the mixed f32 path"
     assert launches["posit_gemm_packed"] == 0, "the packed tensor-core variant ran on f32"
+    assert launches["posit_gemm_p16"] == 0, "the p16 tensor-core route ran on f32"
     assert report["requests"] == 4, report["requests"]
     assert all(n == 8 for n in report["completion_tokens"].values()), report["completion_tokens"]
     assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the mixed f32 path"
@@ -866,12 +967,13 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     # the GEMM's datapaths by kernel name: tensor cores, and the f32-FMA
     # decode (M <= 8) and tile kernels; the packed variants are the
     # templates whose B kind is 4
-    variants = {}
-    for n, _, c in by_name:
+    variants, variants_us = {}, {}
+    for n, us, c in by_name:
         m = re.search(r"(tc_gemm_kernel|gemv_kernel|gemm_kernel)<(\d+), (\d+)", n)
         if m:
             key = f"{m.group(1)} B kind {m.group(3)}"
             variants[key] = variants.get(key, 0) + c / steps
+            variants_us[key] = variants_us.get(key, 0.0) + us / steps
     quire_kernels = sum(c for n, _, c in by_name if "quire" in n)
     quire_readouts = sum(c for n, _, c in by_name if "quire" in n and "readout" in n)
     del eng, params, model
@@ -885,6 +987,7 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
             "quire_gemm_calls_per_step": quire_calls / steps,
             "launches_per_step": step_launches,
             "gemm_kernels_per_step": variants,
+            "gemm_kernel_us_per_step": variants_us,
             "quire_kernels_per_step": quire_kernels / steps,
             "quire_readout_kernels_per_step": quire_readouts / steps,
             "quire_per_product_share": shares,
@@ -980,14 +1083,15 @@ def packed_timings(M: int, shapes, cd=torch.bfloat16, plain: bool = False) -> li
     return rows
 
 
-P16_KN = ((5120, 5120), (5120, 1024))   # the attention projections' shapes
-
 
 def p16_timings(M: int = 4, shapes=P16_KN, plain: bool = False) -> list:
-    """The unpacked kernel on p16_1 weights, the f32-FMA decode kernel at M
-    <= 8: bf16 compute as the mixed path calls it (A and the decoded weight
-    rounded to bf16, f32 sums), and f32 compute; beside the bound and one
-    torch.matmul f32 (TF32 off) on the weight decoded once."""
+    """The unpacked kernel on p16_1 weights: bf16 compute as the mixed path
+    calls it (A and the decoded weight rounded to bf16, f32 sums; the
+    tensor-core route, the f32-FMA kernels before it), and f32 compute (the
+    f32-FMA kernels); beside the bound of each, one torch.matmul on the
+    weight decoded once: bf16 on the bf16-rounded weight (the bf16 route's
+    function) and f32 with TF32 off, and the same kernel on that bf16 weight
+    (the same bytes, no decode: what the p16 decode adds)."""
     rows = []
     for K, N in shapes:
         a, b, _, _ = make_gemm_inputs(M, K, N, P16_1, torch.float32, False, False, seed=6)
@@ -997,15 +1101,21 @@ def p16_timings(M: int = 4, shapes=P16_KN, plain: bool = False) -> list:
                                             **kw))
         wdec = codec_ops.decode(b, 1, nbits=16)
         lib = time_ms(lambda: torch.matmul(a, wdec))
+        w16, a16 = wdec.to(torch.bfloat16), a.to(torch.bfloat16)
+        lib16 = time_ms(lambda: torch.matmul(a16, w16))
+        ms_bf16_w = time_ms(lambda: posit_gemm(a, w16, (0, 0, 0), a_fmt=F32, b_fmt=BF16,
+                                               out_fmt=F32, compute_dtype=torch.bfloat16))
         nbytes = a.numel() * 4 + b.numel() * 2 + M * N * 4
         rows.append({"M": M, "K": K, "N": N, "ms": ms, "f32_compute_ms": ms_f32,
-                     "library_ms": lib, "bytes": nbytes,
-                     "bound_ms": bound_ms(nbytes, 2 * M * K * N, "f32")[0]})
+                     "bf16_weights_ms": ms_bf16_w,
+                     "library_ms": lib16, "library_f32_ms": lib, "bytes": nbytes,
+                     "bound_ms": bound_ms(nbytes, 2 * M * K * N, "bf16")[0],
+                     "bound_f32_ms": bound_ms(nbytes, 2 * M * K * N, "f32")[0]})
         if plain:
             rows[-1]["plain_ms"] = time_ms(
                 lambda: posit_gemm_ref(a, b, (0, 1, 0), compute_dtype=torch.bfloat16, **kw),
                 windows=3, calls=1)
-        del a, b, wdec
+        del a, b, wdec, w16, a16
         torch.cuda.empty_cache()
     return rows
 
@@ -1110,7 +1220,16 @@ def time_kernels(launches: dict, errs: dict) -> list:
                     "bf16" if cd == torch.bfloat16 else "f32", sh["library_ms"])
         DETAILS[f"{name}_decode_shapes"] = shapes
         DETAILS[f"{name}_prefill_shapes"] = packed_timings(64, GEMM_KN[:-1], cd)
-    DETAILS["gemm_p16_decode_shapes"] = p16_timings(plain=True)
+    # p16 weights on the tensor cores (the mixed path's q/k/v/o): the q/o
+    # projection at 4 slots; k/v, f32 compute and prefill go to the details
+    shapes = p16_timings(plain=True)
+    for sh in shapes:
+        if (sh["K"], sh["N"]) == (5120, 5120):
+            row("posit_gemm_p16", "src/repro_torch/csrc/posit_gemm.cu",
+                "src/repro/kernels/posit_gemm/posit_gemm.py:244", sh["ms"], sh["plain_ms"],
+                sh["bytes"], 2 * 4 * sh["K"] * sh["N"], "bf16", sh["library_ms"])
+    DETAILS["gemm_p16_decode_shapes"] = shapes
+    DETAILS["gemm_p16_prefill_shapes"] = p16_timings(64)
     # attention: a decode step of the main path, 4 slots at S_max = 80 (all full)
     q, k, v, lens = attn_inputs(8, S=80, lengths=(80, 80, 80, 80), seed=5)
     kd = codec_ref.decode_ref(k, 0, nbits=8).repeat_interleave(5, dim=1)
@@ -1178,6 +1297,8 @@ def main() -> int:
     log("gemm_batch_invariance", **check_gemm_batch_invariance())
     packed_res = check_packed_gemm()
     log("packed_gemm", **packed_res)
+    p16_res = check_p16_gemm()
+    log("p16_gemm", **p16_res)
     quire_res = check_quire_gemm()
     log("quire_gemm", **quire_res)
     log("quire_gemm_packed", **check_quire_packed())
@@ -1229,12 +1350,18 @@ def main() -> int:
     DETAILS["decode_profile"] = prof
     m_prof = profile_decode(QWEN, mixed_policy)
     log("profile_mixed", **{k: v for k, v in m_prof.items() if k != "top"})
-    # q/k/v/o of 48 layers at p16 on the f32-FMA decode kernel; gate/up/down
-    # of 48 layers and lm_head on the packed tensor-core variant
-    assert m_prof["launches_per_step"]["posit_gemm"] == 4 * QWEN.n_layers, m_prof
+    # q/k/v/o of 48 layers at p16 on the tensor cores, no f32-FMA kernel and
+    # no split-K epilogue; gate/up/down of 48 layers and lm_head on the packed
+    # tensor-core variant
+    assert m_prof["launches_per_step"]["posit_gemm_p16"] == 4 * QWEN.n_layers, m_prof
+    assert m_prof["launches_per_step"]["posit_gemm"] == 0, m_prof
     assert m_prof["launches_per_step"]["posit_gemm_packed"] == 3 * QWEN.n_layers + 1, m_prof
-    assert m_prof["gemm_kernels_per_step"].get("gemv_kernel B kind 3") == 4 * QWEN.n_layers, \
+    assert m_prof["gemm_kernels_per_step"].get("tc_gemm_kernel B kind 3") == \
+        4 * QWEN.n_layers, m_prof["gemm_kernels_per_step"]
+    assert "gemv_kernel B kind 3" not in m_prof["gemm_kernels_per_step"], \
         m_prof["gemm_kernels_per_step"]
+    assert m_prof["splitk_epilogue_calls_per_step"] == 0, \
+        "the mixed decode step still launches a split-K epilogue kernel"
     assert m_prof["gemm_kernels_per_step"].get("tc_gemm_kernel B kind 4") == \
         3 * QWEN.n_layers + 1, m_prof["gemm_kernels_per_step"]
     DETAILS["mixed_decode_profile"] = m_prof
@@ -1252,12 +1379,14 @@ def main() -> int:
             "posit_gemm": gemm_res["max_abs_err"], "posit_attention": attn_res["max_abs_err"],
             "posit_gemm_packed": packed_res["max_abs_err"],
             "posit_gemm_packed_fma": packed_res["max_abs_err"],
+            "posit_gemm_p16": p16_res["max_abs_err"],
             "posit_quire_gemm": quire_res["max_abs_err"],
             "posit_softmax": softmax_res["max_abs_err"]}
     DETAILS["path_launches"] = {"p8_serve": launches, "mixed": m_launches,
                                 "mixed_f32": f_launches, "quire": q_launches,
                                 "softmax": sm_launches}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
+                    posit_gemm_p16=m_launches["posit_gemm_p16"],
                     posit_gemm_packed_fma=f_launches["posit_gemm_packed_fma"],
                     posit_quire_gemm=q_launches["posit_quire_gemm"],
                     posit_softmax=sm_launches["posit_softmax"])

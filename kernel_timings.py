@@ -12,9 +12,12 @@ chip_smoke.py's phase-6 functions: the GEMM at every qwen2.5-14b decode
 (M = 4) and prefill (M = 64, no lm_head) shape beside its bound and
 torch.matmul bf16 on the decoded weight; where the package has them, the
 packed-p8 variants (tensor cores and f32 FMA) at the same shapes beside the
-unpacked kernel and torch.matmul in their compute dtype, and the p16
-f32-FMA path at the attention projections' decode shapes beside
-torch.matmul f32 (TF32 off); the quire GEMM at every
+unpacked kernel and torch.matmul in their compute dtype, and p16 weights
+at the attention projections' decode (M = 4) and prefill (M = 64) shapes,
+under bf16 compute (the tensor cores; the f32-FMA kernels in packages
+before them) and f32 compute (the f32-FMA kernels), beside torch.matmul
+bf16 on the bf16-rounded decoded weight and f32 (TF32 off) and the kernel on
+that bf16 weight (the same bytes, no decode); the quire GEMM at every
 phi3-mini-3.8b decode (M = 4, lm_head 3072 x 32064 included) and prefill
 (M = 32) shape beside its bound (bytes, or one int8 tensor-core MAC a
 product) and a per-product loop's floor (4 int32 operations a product); and
@@ -52,7 +55,8 @@ def main() -> int:
     res = {"src": str(src), "build_seconds": seconds,
            "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),
            "gemm_prefill": smoke.gemm_timings(64, smoke.GEMM_KN[:-1]),
-           "gemm_p16_decode": smoke.p16_timings()}
+           "gemm_p16_decode": smoke.p16_timings(),
+           "gemm_p16_prefill": smoke.p16_timings(64)}
     if (src / "repro_torch" / "core" / "pack.py").exists():   # packages with packed lanes
         for cd, name in ((torch.bfloat16, "packed_tc"), (torch.float32, "packed_fma")):
             res[f"{name}_decode"] = smoke.packed_timings(4, smoke.GEMM_KN, cd)

@@ -20,16 +20,18 @@
 //
 // Two datapaths, chosen by the format pair:
 //
-// * Tensor cores (`tc_gemm_kernel`), for the pairs the format-pair plan
-//   computes in bf16 with B as p8 or bf16 codes. A p8 code decodes exactly to
-//   bf16 (DESIGN.md section 2) and bf16 x bf16 products are exact in f32, so
-//   `mma.sync.m16n8k16` bf16 -> f32 differs from an f32 FMA loop only in the
-//   summation order.
+// * Tensor cores (`tc_gemm_kernel`), for the pairs computed in bf16 with B as
+//   p8, p16 or bf16 codes. A p8 code decodes exactly to bf16 (DESIGN.md
+//   section 2); a p16 code is rounded to bf16 from its exact value, as the
+//   reference does (`posit_decode(...).astype(compute_dtype)`); bf16 x bf16
+//   products are exact in f32, so `mma.sync.m16n8k16` bf16 -> f32 differs
+//   from an f32 FMA loop only in the summation order.
 //   - Raw codes stream: each stage of 64 k rows x 128 columns of B (1 byte an
 //     element for p8) and the matching A slice arrive through cp.async, 16
 //     bytes a thread, in a ring of shared memory (3 stages for the 8-row
-//     tile, two blocks an SM; 5 for the 64-row tile, one block an SM), so
-//     ~45-110 KB per SM are in flight whatever the register count. Ragged
+//     tile, two blocks an SM, or 7 and one block for p16; 5 for the 64-row
+//     tile, one block an SM), so ~45-120 KB per SM are in flight whatever
+//     the register count. Ragged
 //     edges are zero-filled by the copy (src-size < 16).
 //   - The weights are the MMA's A operand (16 weight columns x 16 k), the
 //     activations its B operand (8 rows). A lane reads 8 consecutive columns
@@ -40,6 +42,16 @@
 //   - p8 decode: a 256-entry table of bf16 bits replicated once per lane
 //     (entry (code, lane) at word code * 32 + lane, 32 KB, built once per
 //     block), so every lookup of a warp hits 32 distinct banks.
+//   - p16 decode: the class table below (`p16_magnitude`), about 8 integer
+//     operations and one conflict-free shared-memory load a code in place of
+//     the ~35 of the bit pipeline, then one hardware RNE to bf16 a pair
+//     (`__floats2bfloat162_rn`). The int32 pipe, not the bytes, bounded the
+//     f32-FMA kernel on p16 weights. The table fills while the ring's first
+//     stages load; the 8-row tile runs one block an SM with a 7-stage ring
+//     and 255 registers (measured faster than two blocks with 3 stages at
+//     the k/v shape, no slower at q/o). With bf16 weights (the same bytes,
+//     no decode) the kernel itself reads ~2 TB/s at these shapes; the decode
+//     adds about a third to that.
 //   - M <= 8 pads to the MMA's 8 rows and every weight element is decoded
 //     once for all rows; M > 8 uses 64-row tiles of A (8 MMAs per decoded
 //     fragment). Eight warps: two column halves x four 16-row k slices of a
@@ -57,8 +69,9 @@
 //     depend on how many other rows share the batch. The walk advances its
 //     cursor without divisions (64-bit divisions in the loop cost 2x).
 // * f32 FMA, for pairs computed in f32 (p16 or f32 B; TF32 is not exact for
-//   p16): `gemv_kernel` for M <= 8 (B streamed once, 8 columns a lane, each
-//   element decoded once for all rows) and `gemm_kernel` (64 x 64 tiles)
+//   p16) and for p16 or f32 B, or p16 A, under bf16: `gemv_kernel` for M <= 8
+//   (B streamed once, 8 columns a lane, each element decoded once for all
+//   rows, p16 through the class table) and `gemm_kernel` (64 x 64 tiles)
 //   above. K splits over blockIdx.z into f32 partials that a second kernel
 //   sums in split order before the epilogue.
 //
@@ -129,6 +142,77 @@ __device__ __forceinline__ void emit(const GemmArgs& g, long long idx, int n, fl
 
 __device__ __forceinline__ float to_compute(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+// ---- p16 decode through a class table ----
+// Within one class of magnitude codes a (regime run m, first regime bit r0),
+// the f32 bits of the value are linear in a:
+//   bits = ((k * 2^es + 127) << 23) + (ef << sh),  sh = 9 + m + es,
+// where ef is the field after the regime's terminator (exponent bits, then
+// fraction; a truncated exponent lands in the exponent field all the same).
+// The bits above ef are the class's regime, so bits = T + (a << sh) mod 2^32
+// with one word T a class, whose low 23 bits are zero. `a >> 7` fixes the
+// class unless the run reaches bit 7 (rows 0 and 255: values below
+// 2^(-7 * 2^es) or from 2^(7 * 2^es) on); those rows point to a second level
+// of one word per code, indexed by `a & 0xFF`. Row 256 is NaR's. A word
+// holds T + sh (sh in bits 0-4); the rare rows hold only the flag bit 5. A
+// row holds one copy a lane, so a warp's 32 loads hit 32 distinct banks.
+// core/lut.py's split table is the same idea with OR in place of the add,
+// which needs the exponent bits inside the first byte too (its second level
+// takes 16 of 128 rows at es 3); the add needs only the regime there. bf16
+// is one hardware RNE of the exact value, two codes at a time.
+// repro_torch/kernels/posit_gemm/ref.py `p16_table_decode` emulates it on the
+// CPU, tested bit for bit against the reference decode for every code.
+constexpr int kP16Rows = 257;              // a >> 7: 0..255, and NaR's 256
+constexpr int kP16L1 = kP16Rows * 128;     // bytes: row r, lane l at r * 128 + l * 4
+constexpr int kP16TabBytes = kP16L1 + 256 * 4;
+constexpr uint32_t kP16Rare = 0x20u;
+
+// The table word T + sh of magnitude code a (0 .. 0x8000) at `es`.
+__device__ uint32_t p16_word(uint32_t a, int es) {
+  // NaR: T + (0x8000 << 16) = 0xFFC00000, whose sign the code's sign clears
+  if (a == 0x8000u) return 0x7FC00000u + 16u;
+  int m, k;
+  posit::regime(a, 16, m, k);
+  const int sh = 9 + m + es;  // 10 .. 27
+  return __float_as_uint(posit::decode(a, 16, es)) - (a << sh) + static_cast<uint32_t>(sh);
+}
+
+// Fills the table at `tab` (kP16TabBytes, 16-byte aligned) for the block.
+__device__ void fill_p16_table(uint8_t* tab, int es, int tid, int nthreads) {
+  for (int r = tid; r < kP16Rows; r += nthreads) {
+    const uint32_t v = r == 0 || r == 255 ? kP16Rare : p16_word(r << 7, es);
+    const uint4 v4 = make_uint4(v, v, v, v);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) reinterpret_cast<uint4*>(tab + r * 128)[(q + r) & 7] = v4;
+  }
+  uint32_t* second = reinterpret_cast<uint32_t*>(tab + kP16L1);
+  for (int i = tid; i < 256; i += nthreads) second[i] = p16_word(i < 128 ? i : 0x7F00 + i, es);
+}
+
+// The f32 bits of the magnitude of the sign-extended p16 code s. `lane4` =
+// lane * 4, the lane's copy of each row.
+__device__ __forceinline__ uint32_t p16_magnitude(int s, const uint8_t* tab, uint32_t lane4) {
+  const uint32_t a = static_cast<uint32_t>(abs(s));
+  uint32_t t = *reinterpret_cast<const uint32_t*>(tab + ((a & 0xFF80u) | lane4));
+  if (t & kP16Rare) t = reinterpret_cast<const uint32_t*>(tab + kP16L1)[a & 0xFFu];
+  return (t & ~0x1Fu) + __funnelshift_l(0u, a, t);  // T + (a << sh)
+}
+
+// The p16 code s as float32, exactly (NaR: 0x7FC00000).
+__device__ __forceinline__ float p16_f32(int s, const uint8_t* tab, uint32_t lane4) {
+  return __uint_as_float(p16_magnitude(s, tab, lane4) ^
+                         (static_cast<uint32_t>(s) & 0x80000000u));
+}
+
+// Two p16 codes (a uint32 word: low half, high half) as two bf16, RNE from
+// the exact values (NaR: a NaN).
+__device__ __forceinline__ uint32_t p16_bf16x2(uint32_t w, const uint8_t* tab, uint32_t lane4) {
+  const int lo = static_cast<int16_t>(w & 0xFFFFu), hi = static_cast<int>(w) >> 16;
+  const __nv_bfloat162 h =
+      __floats2bfloat162_rn(__uint_as_float(p16_magnitude(lo, tab, lane4)),
+                            __uint_as_float(p16_magnitude(hi, tab, lane4)));
+  return *reinterpret_cast<const uint32_t*>(&h) ^ (w & 0x80008000u);
 }
 
 // Element (k, n) of B as float32, two lanes for a packed B (lo: row k, hi:
@@ -247,10 +331,12 @@ constexpr int kGvKChunk = 1024;           // k of A staged at a time
 
 // kGvVec consecutive B values of one row as float32, one vector load; a
 // packed row gives its low lane in v[0..7] and its high lane in v[8..15].
+// `tab` is the block's p8 table, `tab16` its p16 table.
 template <int KB>
 __device__ __forceinline__ void load_row(const void* b, long long off,
                                          float (&v)[KB == kP8x2 ? 2 * kGvVec : kGvVec],
-                                         const float* tab, int es) {
+                                         const float* tab, const uint8_t* tab16,
+                                         uint32_t lane4) {
   if constexpr (KB == kP8) {
     const uint2 r = *reinterpret_cast<const uint2*>(static_cast<const uint8_t*>(b) + off);
     const uint8_t* c = reinterpret_cast<const uint8_t*>(&r);
@@ -266,9 +352,9 @@ __device__ __forceinline__ void load_row(const void* b, long long off,
     }
   } else if constexpr (KB == kP16) {
     const uint4 r = *reinterpret_cast<const uint4*>(static_cast<const uint16_t*>(b) + off);
-    const uint16_t* c = reinterpret_cast<const uint16_t*>(&r);
+    const int16_t* c = reinterpret_cast<const int16_t*>(&r);
 #pragma unroll
-    for (int j = 0; j < kGvVec; ++j) v[j] = posit::decode(c[j], 16, es);
+    for (int j = 0; j < kGvVec; ++j) v[j] = p16_f32(c[j], tab16, lane4);
   } else if constexpr (KB == kBF16) {
     const uint4 r = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(b) + off);
     const __nv_bfloat16* c = reinterpret_cast<const __nv_bfloat16*>(&r);
@@ -286,15 +372,19 @@ template <int KA, int KB, int MT>
 __global__ void __launch_bounds__(kGvThreads, 2)
 gemv_kernel(GemmArgs g, bool vec_ok) {
   constexpr int NL = KB == kP8x2 ? 2 : 1;      // lanes of a B word
-  constexpr int KC = kGvKChunk / NL;           // B rows of a staged A chunk
+  // B rows of a staged A chunk; fewer for p16, whose table takes the room
+  // (static shared memory stays under 48 KB)
+  constexpr int KC = KB == kP16 ? (MT == 1 ? 1024 : (MT <= 4 ? 256 : 128)) : kGvKChunk / NL;
   constexpr int U = (MT <= 4 ? 8 : 4) / NL;    // rows a warp has in flight (registers)
   __shared__ float As[NL][MT][KC];
   __shared__ float red[kGvWarps][kGvCols];
   __shared__ float tab_a[KA == kP8 ? 256 : 1];
   __shared__ float tab_b[KB == kP8 || KB == kP8x2 ? 256 : 1];
+  __shared__ __align__(16) uint8_t tab16[KB == kP16 ? kP16TabBytes : 16];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if constexpr (KA == kP8) posit::fill_p8_table(tab_a, g.es_a, tid, kGvThreads);
   if constexpr (KB == kP8 || KB == kP8x2) posit::fill_p8_table(tab_b, g.es_b, tid, kGvThreads);
+  if constexpr (KB == kP16) fill_p16_table(tab16, g.es_b, tid, kGvThreads);
 
   const int n0 = blockIdx.x * kGvCols;
   const int nl = n0 + lane * kGvVec;
@@ -328,7 +418,7 @@ gemv_kernel(GemmArgs g, bool vec_ok) {
         const int r = r0 + u * kGvWarps;
         const long long off = static_cast<long long>(kc + r) * g.N + nl;
         if (r < kn && full) {
-          load_row<KB>(g.b, off, bv[u], tab_b, g.es_b);
+          load_row<KB>(g.b, off, bv[u], tab_b, tab16, lane * 4u);
         } else {
 #pragma unroll
           for (int j = 0; j < kGvVec; ++j) {
@@ -392,7 +482,7 @@ __global__ void __launch_bounds__(256) splitk_epilogue_kernel(GemmArgs g) {
   emit(g, idx, static_cast<int>(idx % g.N), y);
 }
 
-// ---- tensor-core path: B as p8 (packed or not) or bf16 codes, bf16 compute ----
+// ---- tensor-core path: B as p8 (packed or not), p16 or bf16 codes, bf16 compute ----
 constexpr int kTcThreads = 256;  // 8 warps
 constexpr int kTcBN = 128;       // output columns of a tile
 constexpr int kTcBK = 64;        // k rows of a stage
@@ -413,24 +503,31 @@ constexpr int elem_bytes() {
 // ahead (5 measured faster than 3 or 4). A packed stage (NL = 2 lanes) holds
 // twice the B bytes and two A slices, so the rings keep 2 and 3 stages: the
 // same B bytes in flight as 3 unpacked stages for the 8-row tile (two blocks
-// an SM still fit), and what fits shared memory for the 64-row tile.
+// an SM still fit), and what fits shared memory for the 64-row tile. p16's
+// 8-row tile runs one block an SM with 7 stages (its 34 KB table beside).
 template <int KA, int KB, int MT>
 struct TcLayout {
   static constexpr int BM = 8 * MT;
   static constexpr int NL = KB == kP8x2 ? 2 : 1;
+  // resident blocks an SM (kernels/posit_gemm/ops.py `split_plan` sizes the
+  // grid from the same rule)
+  static constexpr int BLOCKS = MT == 1 && KB != kP16 ? 2 : 1;
   static constexpr int EA = elem_bytes<KA>(), EB = elem_bytes<KB>();
   static constexpr int BN = kTcBN, CG = 2, KS = 4;
-  static constexpr int STAGES = NL == 2 ? (MT == 1 ? 2 : 3) : (MT == 1 ? 3 : 5);
+  static constexpr int STAGES =
+      KB == kP16 && MT == 1 ? 7 : (NL == 2 ? (MT == 1 ? 2 : 3) : (MT == 1 ? 3 : 5));
   static constexpr int WS = BN * EB + 16;
   static constexpr int AS = kTcBK * EA + (EA == 4 ? 32 : 16);
   static constexpr int W_BYTES = kTcBK * WS;
   static constexpr int A_BYTES = BM * AS;  // one A slice
   static constexpr int STAGE = W_BYTES + NL * A_BYTES;
-  static constexpr int TAB = KB == kP8 || KB == kP8x2 ? 256 * 32 * 4 : 0;  // replicated p8 table
+  // the replicated p8 table, or the p16 class table
+  static constexpr int TAB = KB == kP8 || KB == kP8x2 ? 256 * 32 * 4
+                             : (KB == kP16 ? kP16TabBytes : 0);
   static constexpr int TAB_A = KA == kP8 ? 256 * 4 : 0;
   static constexpr int RED = 8 * 16 * 32 * 4;               // warps x floats x lanes
   static constexpr int SMEM = TAB + TAB_A + RED + STAGES * STAGE;
-  static_assert(SMEM * (MT == 1 ? 2 : 1) <= 227 * 1024, "the ring must fit its blocks an SM");
+  static_assert(SMEM * BLOCKS <= 227 * 1024, "the ring must fit its blocks an SM");
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -603,13 +700,22 @@ __device__ __forceinline__ void weight_frags(const uint8_t* p, int ws, const uin
                         *reinterpret_cast<const uint2*>(p + 8 * ws),
                         *reinterpret_cast<const uint2*>(p + 9 * ws)};
     p8_frags(r, tab, lane4, f);
-  } else {  // bf16: 8 columns = 16 bytes a row, two columns a word
+  } else {  // bf16, or p16 decoded to bf16: 8 columns = 16 bytes a row, two columns a word
     const uint4 r0 = *reinterpret_cast<const uint4*>(p);
     const uint4 r1 = *reinterpret_cast<const uint4*>(p + ws);
     const uint4 r2 = *reinterpret_cast<const uint4*>(p + 8 * ws);
     const uint4 r3 = *reinterpret_cast<const uint4*>(p + 9 * ws);
-    const uint32_t w0[4] = {r0.x, r0.y, r0.z, r0.w}, w1[4] = {r1.x, r1.y, r1.z, r1.w};
-    const uint32_t w2[4] = {r2.x, r2.y, r2.z, r2.w}, w3[4] = {r3.x, r3.y, r3.z, r3.w};
+    uint32_t w0[4] = {r0.x, r0.y, r0.z, r0.w}, w1[4] = {r1.x, r1.y, r1.z, r1.w};
+    uint32_t w2[4] = {r2.x, r2.y, r2.z, r2.w}, w3[4] = {r3.x, r3.y, r3.z, r3.w};
+    if constexpr (KB == kP16) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        w0[j] = p16_bf16x2(w0[j], tab, lane4);
+        w1[j] = p16_bf16x2(w1[j], tab, lane4);
+        w2[j] = p16_bf16x2(w2[j], tab, lane4);
+        w3[j] = p16_bf16x2(w3[j], tab, lane4);
+      }
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       f[j][0] = __byte_perm(w0[j], w1[j], 0x5410);
@@ -647,7 +753,7 @@ struct Cursor {
 };
 
 template <int KA, int KB, int MT>
-__global__ void __launch_bounds__(kTcThreads, MT == 1 ? 2 : 1)
+__global__ void __launch_bounds__(kTcThreads, (TcLayout<KA, KB, MT>::BLOCKS))
 tc_gemm_kernel(GemmArgs g, bool vec_a, bool vec_b) {
   using L = TcLayout<KA, KB, MT>;
   constexpr int BN = L::BN, S = L::STAGES;
@@ -702,6 +808,8 @@ tc_gemm_kernel(GemmArgs g, bool vec_a, bool vec_b) {
     }
     cp_async_commit();
   }
+  // the p16 table (33 KB) fills while the first stages are in flight
+  if constexpr (KB == kP16) fill_p16_table(smem, g.es_b, tid, kTcThreads);
 
   float acc[4][MT][4];
 #pragma unroll
@@ -905,6 +1013,7 @@ cudaError_t launch_tc_b(const GemmArgs& g, int b_kind, int grid, cudaStream_t s)
   switch (b_kind) {
     case kP8: return launch_tc_rows<KA, kP8>(g, grid, s);
     case kP8x2: return launch_tc_rows<KA, kP8x2>(g, grid, s);
+    case kP16: return launch_tc_rows<KA, kP16>(g, grid, s);
     default: return launch_tc_rows<KA, kBF16>(g, grid, s);
   }
 }
@@ -950,7 +1059,7 @@ bool launch_b(const GemmArgs& g, int b_kind, cudaStream_t s) {
 extern "C" {
 
 // b_kind: posit::Kind, or kP8x2 (4) for packed p8 B of ceil(K/2) rows.
-// grid: tensor-core path (bf16 compute, B p8, packed p8 or bf16, A
+// grid: tensor-core path (bf16 compute, B p8, packed p8, p16 or bf16, A
 // f32/bf16/p8), the number of persistent blocks, with `partial` (grid, 2,
 // BM, 128) f32 and `counters` (one zeroed int per output tile) when grid >
 // 1; f32-FMA path, the split count of B's rows, with `partial` (grid, M, N)
@@ -962,7 +1071,8 @@ int posit_gemm_launch(const void* a, const void* b, void* out, const float* bias
                       int es_out, int act, int bf16_compute, int grid, int k_per_split,
                       void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  const bool tc = bf16_compute && (b_kind == kP8 || b_kind == kBF16 || b_kind == kP8x2) &&
+  const bool tc = bf16_compute &&
+                  (b_kind == kP8 || b_kind == kBF16 || b_kind == kP8x2 || b_kind == kP16) &&
                   (a_kind == kF32 || a_kind == kBF16 || a_kind == kP8);
   const int kb = b_kind == kP8x2 ? (K + 1) / 2 : K;
   if (grid < 1 || (grid > 1 && partial == nullptr) || out_kind < kF32 || out_kind > kP16 ||

@@ -15,6 +15,7 @@ LAUNCHES: dict[str, int] = {
     "posit_gemm": 0,
     "posit_gemm_packed": 0,
     "posit_gemm_packed_fma": 0,
+    "posit_gemm_p16": 0,
     "posit_attention": 0,
     "posit_quire_gemm": 0,
     "posit_softmax": 0,

@@ -5,7 +5,9 @@ B may arrive as packed p8 lanes (``b_packed``, core/pack.py): (ceil(K/2), N)
 uint16, two codes a word. The kernel's packed variants walk the packed rows
 and split each word into its two codes; their launches count under
 ``posit_gemm_packed`` (tensor cores) and ``posit_gemm_packed_fma`` (f32
-FMA), the unpacked kernel's under ``posit_gemm``."""
+FMA). p16 weights on the tensor cores (bf16 compute, decoded through the
+kernel's class table) count under ``posit_gemm_p16``; every other launch of
+the unpacked kernel under ``posit_gemm``."""
 from __future__ import annotations
 
 import ctypes
@@ -58,17 +60,17 @@ def _sm_count(device_index: int) -> int:
 
 def uses_tensor_cores(a_kind: int, b_kind: int, bf16_compute: bool) -> bool:
     """The pairs the kernel computes on bf16 tensor cores: bf16 compute, B as p8
-    (packed or not) or bf16 codes, A as f32, bf16 or p8 (``posit_gemm_launch``
-    in csrc/posit_gemm.cu makes the same choice). Other pairs take the f32 FMA
-    kernels."""
-    return bf16_compute and b_kind in (1, 2, PACKED_KIND) and a_kind in (0, 1, 2)
+    (packed or not), p16 or bf16 codes, A as f32, bf16 or p8
+    (``posit_gemm_launch`` in csrc/posit_gemm.cu makes the same choice). Other
+    pairs take the f32 FMA kernels."""
+    return bf16_compute and b_kind in (1, 2, 3, PACKED_KIND) and a_kind in (0, 1, 2)
 
 
 def launch_counter(b_kind: int, tensor_cores: bool) -> str:
     """The ``kernels.LAUNCHES`` key a launch of this B kind and datapath adds to."""
-    if b_kind != PACKED_KIND:
-        return "posit_gemm"
-    return "posit_gemm_packed" if tensor_cores else "posit_gemm_packed_fma"
+    if b_kind == PACKED_KIND:
+        return "posit_gemm_packed" if tensor_cores else "posit_gemm_packed_fma"
+    return "posit_gemm_p16" if b_kind == 3 and tensor_cores else "posit_gemm"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,20 +86,21 @@ class StreamPlan:
     grid: int    # persistent blocks
 
 
-def split_plan(M: int, N: int, K: int, sms: int) -> StreamPlan:
+def split_plan(M: int, N: int, K: int, sms: int, b_kind: int = 2) -> StreamPlan:
     """The tensor-core kernel's grid: one wave of resident blocks (two per SM
-    for the 8-row tile, one for the 64-row tile), fewer when the work would
-    give a block under 4 (8-row) or 8 (64-row) k steps, since every extra
-    block splits a tile once more and its part must be read back by the
-    tile's last block (a 64-row part is 32 KB). Every block's share
-    is within one k step of every other's, whatever N is, so no partial
-    wave runs at the end. For M <= 8 the plan does not depend on M, so the
-    rows of a decode batch get the same summation order whatever the batch
-    size."""
+    for the 8-row tile, one for the 64-row tile and for p16 B's 8-row tile,
+    whose ring is deeper: ``TcLayout::BLOCKS`` in csrc/posit_gemm.cu), fewer
+    when the work would give a block under 4 (8-row) or 8 (64-row) k steps,
+    since every extra block splits a tile once more and its part must be
+    read back by the tile's last block (a 64-row part is 32 KB). Every
+    block's share is within one k step of every other's, whatever N is, so
+    no partial wave runs at the end. For M <= 8 the plan does not depend on
+    M, so the rows of a decode batch get the same summation order whatever
+    the batch size."""
     rows = 8 if M <= 8 else 64
     tiles = -(-N // TC_COLS) * -(-M // rows)
     steps = max(1, -(-K // TC_STEP))
-    resident = sms * (2 if rows == 8 else 1)
+    resident = sms * (2 if rows == 8 and b_kind != 3 else 1)
     least = 4 if rows == 8 else 8
     return StreamPlan(rows, tiles, steps, max(1, min(resident, tiles * steps // least)))
 
@@ -198,7 +201,7 @@ def posit_gemm(
     counters = None
     tensor_cores = uses_tensor_cores(a_kind, b_kind, compute_dtype == torch.bfloat16)
     if tensor_cores:
-        plan = split_plan(M, N, kb, sms)
+        plan = split_plan(M, N, kb, sms, b_kind)
         grid, k_per_split = plan.grid, 0
         partial = (torch.empty((grid, 2, plan.rows, TC_COLS), dtype=torch.float32,
                                device=a.device) if grid > 1 else None)

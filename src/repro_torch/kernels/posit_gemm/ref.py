@@ -5,7 +5,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.codec import posit_decode, posit_encode
+from repro_torch.core.codec import (_M32, _bits_to_f32, _f32_to_bits, _regime, posit_decode,
+                                    posit_encode)
 from repro_torch.core.dot import apply_epilogue, format_pair_plan
 from repro_torch.core.lut import decode_with_impl
 from repro_torch.core.pack import split_activations, unpack_p8
@@ -51,3 +52,62 @@ def posit_gemm_ref(
     if isinstance(out_fmt, PositFmt):
         return posit_encode(y, out_fmt.nbits, es_out)
     return y.to(out_fmt.dtype)
+
+
+# The kernel's p16 class table (csrc/posit_gemm.cu ``fill_p16_table`` and
+# ``p16_magnitude``): 257 first-level rows (a >> 7, NaR's 256) of one word
+# T + sh, one copy a lane, and a second level of one word per code of rows 0
+# and 255.
+P16_RARE = 0x20
+
+
+def _p16_word(a: torch.Tensor, es: int) -> torch.Tensor:
+    """``p16_word``: T + sh of magnitude codes ``a`` (int64, 0 .. 0x8000),
+    T = bits(decode(a)) - (a << sh) mod 2^32, sh = 9 + m + es."""
+    m, _ = _regime(a, 16)
+    sh = 9 + m + es
+    t = (_f32_to_bits(posit_decode(a, 16, es)) - ((a << sh) & _M32)) & _M32
+    return torch.where(a == 0x8000, torch.full_like(a, 0x7FC00000 + 16), t + sh)
+
+
+def p16_table_words(es: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(first level (257 * 32,) int64, word r * 32 + lane; second level
+    (256,)): the words the kernel fills its shared-memory table with."""
+    rows = torch.arange(257, dtype=torch.int64)
+    l1 = torch.where((rows == 0) | (rows == 255), torch.full_like(rows, P16_RARE),
+                     _p16_word(rows << 7, es))
+    i = torch.arange(256, dtype=torch.int64)
+    return l1.repeat_interleave(32), _p16_word(torch.where(i < 128, i, 0x7F00 + i), es)
+
+
+def _p16_table_magnitude(codes: torch.Tensor, es: int) -> torch.Tensor:
+    """``p16_magnitude`` on p16 codes (any integer dtype), each read by lane
+    ``index % 32``: the f32 bits of the magnitude, int64."""
+    l1, l2 = p16_table_words(es)
+    c = codes.to(torch.int64) & 0xFFFF
+    a = torch.where(c >= 0x8000, 0x10000 - c, c)            # abs of the sign-extended code
+    lane4 = (torch.arange(c.numel(), dtype=torch.int64) % 32).reshape(c.shape) * 4
+    t = l1[((a & 0xFF80) | lane4) >> 2]                      # the kernel's byte offset / 4
+    t = torch.where((t & P16_RARE) != 0, l2[a & 0xFF], t)
+    return ((t & ~0x1F) + ((a << (t & 31)) & _M32)) & _M32
+
+
+def p16_table_decode(codes: torch.Tensor, es, bf16: bool = False) -> torch.Tensor:
+    """The kernel's p16 decode, emulated: f32 (``p16_f32``; NaR 0x7FC00000),
+    or bf16 as ``p16_bf16x2`` makes it from a uint32 of two codes: the RNE
+    of each exact magnitude, then the codes' signs (NaR: a NaN)."""
+    es = min(max(int(es), 0), 3)
+    c = codes.to(torch.int64) & 0xFFFF
+    mag = _p16_table_magnitude(c, es)
+    if not bf16:
+        return _bits_to_f32(mag ^ ((c >> 15) << 31))
+    flat, mflat = c.reshape(-1), mag.reshape(-1)
+    if flat.numel() % 2:                                     # a half-filled last word
+        flat = torch.cat([flat, flat.new_zeros(1)])
+        mflat = torch.cat([mflat, mflat.new_zeros(1)])
+    half = _bits_to_f32(mflat).to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    word = flat[0::2] | (flat[1::2] << 16)
+    packed = (half[0::2] | (half[1::2] << 16)) ^ (word & 0x80008000)
+    out = torch.stack([packed & 0xFFFF, packed >> 16], dim=1).reshape(-1)[:c.numel()]
+    out = torch.where(out >= 0x8000, out - 0x10000, out)
+    return out.to(torch.int16).view(torch.bfloat16).reshape(c.shape)

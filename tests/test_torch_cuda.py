@@ -122,6 +122,66 @@ def test_gemm_decode_rows_batch_invariant(dev, K, N):
 
 
 @pytest.mark.parametrize("M", [1, 4, 8, 9, 64])
+@pytest.mark.parametrize("K,N", [(999, 1001), (1030, 1000), (640, 384)])
+@pytest.mark.parametrize("a_fmt", [F32, BF16, P8_0], ids=["f32", "bf16", "p8"])
+def test_gemm_p16_tensor_cores_match_plain(dev, M, K, N, a_fmt):
+    """p16 weights under bf16 compute run on the tensor cores (their own
+    launch count) and agree with the plain version within the GEMM bound on
+    the bf16-rounded operands, at ragged K and N, decode and prefill rows."""
+    a, b, bias, res = _gemm_operands(dev, M, K, N, P16_1, M + K + 2)
+    if a_fmt == BF16:
+        a = a.to(torch.bfloat16)
+    elif a_fmt == P8_0:
+        a = codec_ops.encode(a, 0, nbits=8)
+    kw = dict(a_fmt=a_fmt, b_fmt=P16_1, out_fmt=F32, bias=bias, residual=res,
+              activation="silu", compute_dtype=torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    got = posit_gemm(a, b, (0, 1, 0), **kw)
+    assert kernels.LAUNCHES["posit_gemm_p16"] == before["posit_gemm_p16"] + 1
+    assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"]
+    want = posit_gemm_ref(a, b, (0, 1, 0), **kw)
+    avals = codec_ref.decode_ref(a, 0, nbits=8) if a_fmt == P8_0 else a.float()
+    bvals = codec_ref.decode_ref(b, 1, nbits=16).to(torch.bfloat16).float()
+    tol = 4 * K * U * (avals.to(torch.bfloat16).float().abs() @ bvals.abs() + bias.abs()) \
+        + 16 * U * (want.abs() + res.abs())
+    assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("es", [0, 1, 2, 3])
+@pytest.mark.parametrize("M", [8, 64])
+def test_gemm_p16_tensor_cores_decode_every_code(dev, es, M):
+    """Every p16 code through one-hot activation rows (one k step): the
+    tensor-core route's result is the bf16 rounding of each decoded code,
+    bit for bit the plain version's; NaR's column reads NaN."""
+    codes = torch.arange(1 << 16, device=dev, dtype=torch.int32)
+    codes = torch.cat([codes[codes != 0x8000], codes.new_zeros(1)])
+    b = torch.cat([codes.reshape(M, -1), codes.new_zeros((M, 8))], dim=1)
+    b[0, -8] = 0x8000
+    b = b.to(torch.uint16).contiguous()
+    a = torch.eye(M, device=dev)
+    kw = dict(a_fmt=F32, b_fmt=P16_1, out_fmt=F32, compute_dtype=torch.bfloat16)
+    got = posit_gemm(a, b, (0, es, 0), **kw)
+    want = posit_gemm_ref(a, b, (0, es, 0), **kw)
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got[:, -8].isnan().all())
+    live = ~want.isnan()
+    assert torch.equal(got[live].view(torch.int32), want[live].view(torch.int32))
+
+
+@pytest.mark.parametrize("K,N", [(5120, 5120), (5120, 1024), (777, 1001)])
+def test_gemm_p16_decode_rows_batch_invariant(dev, K, N):
+    """p16 decode rows (M <= 8) on the tensor cores are bit for bit the same
+    whatever the batch."""
+    a, b, bias, res = _gemm_operands(dev, 8, K, N, P16_1, 4)
+    kw = dict(a_fmt=F32, b_fmt=P16_1, out_fmt=F32, activation="none",
+              compute_dtype=torch.bfloat16)
+    full = posit_gemm(a, b, (0, 1, 0), bias=bias, residual=res, **kw).view(torch.int32)
+    for M in (1, 4):
+        part = posit_gemm(a[:M].contiguous(), b, (0, 1, 0), bias=bias,
+                          residual=res[:M].contiguous(), **kw).view(torch.int32)
+        assert torch.equal(part, full[:M])
+
+
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64])
 @pytest.mark.parametrize("K,N", [(999, 1001), (1030, 1000), (640, 384), (5120, 264)])
 @pytest.mark.parametrize("cd", [torch.bfloat16, torch.float32], ids=["tc", "fma"])
 def test_packed_gemm_kernel_matches_plain(dev, M, K, N, cd):
@@ -344,8 +404,9 @@ def test_reduced_quire_engine_on_card(dev):
 @pytest.mark.parametrize("base", [P8_SERVE, parse_policy("none")], ids=["p8-serve", "f32"])
 def test_reduced_mixed_precision_engine_on_card(dev, base):
     """The reduced qwen2.5-14b under attn-p16-mlp-p8: p16 attention on the
-    unpacked kernel, MLP and head on the packed variant of the base's
-    compute dtype."""
+    unpacked kernel (its tensor-core p16 route under bf16 compute, the
+    f32-FMA kernels under f32), MLP and head on the packed variant of the
+    base's compute dtype."""
     cfg = get_arch("qwen2.5-14b").reduced()
     pol = get_precision_policy("attn-p16-mlp-p8", base=base)
     model = build_model(cfg)
@@ -356,5 +417,8 @@ def test_reduced_mixed_precision_engine_on_card(dev, base):
     done = eng.run(poisson_requests(3, arrival_rate=0.0, prompt_lens=(8,),
                                     max_new_tokens=4, vocab=cfg.vocab))
     assert len(done) == 3 and all(len(c.tokens) == 4 for c in done)
-    packed = "posit_gemm_packed" if base.compute_dtype == "bf16" else "posit_gemm_packed_fma"
-    assert kernels.LAUNCHES[packed] > 0 and kernels.LAUNCHES["posit_gemm"] > 0
+    bf16 = base.compute_dtype == "bf16"
+    packed = "posit_gemm_packed" if bf16 else "posit_gemm_packed_fma"
+    p16, idle = ("posit_gemm_p16", "posit_gemm") if bf16 else ("posit_gemm", "posit_gemm_p16")
+    assert kernels.LAUNCHES[packed] > 0 and kernels.LAUNCHES[p16] > 0
+    assert kernels.LAUNCHES[idle] == 0

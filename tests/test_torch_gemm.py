@@ -231,6 +231,24 @@ def test_split_plan_covers_k_and_fills_whole_waves(M, K, N):
         assert shares[b][0] <= x < shares[b][1]
 
 
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64])
+@pytest.mark.parametrize("K,N", QWEN_KN[:2] + ((999, 1001), (1, 7)))
+def test_p16_split_plan_runs_one_block_an_sm(M, K, N):
+    """p16 B's 8-row tile runs one block an SM (its deeper ring), so its
+    grid is at most the SM count and the same for every M <= 8; the 64-row
+    tile's plan is the other kinds'. Shares cover every item once."""
+    plan = split_plan(M, N, K, SMS, b_kind=3)
+    if M <= 8:
+        assert plan == split_plan(1, N, K, SMS, b_kind=3)
+        assert plan.grid == SMS or plan.grid == max(1, plan.tiles * plan.steps // 4) < SMS
+    else:
+        assert plan == split_plan(M, N, K, SMS)
+    shares = _shares(plan)
+    assert shares[0][0] == 0 and shares[-1][1] == plan.tiles * plan.steps
+    sizes = [e - s for s, e in shares]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
 @pytest.mark.parametrize("M", [1, 8, 9, 64])
 @pytest.mark.parametrize("K,N", QWEN_KN + ((999, 1001),))
 def test_fma_split_plan_covers_k(M, K, N):
@@ -247,13 +265,65 @@ def test_fma_split_plan_covers_k(M, K, N):
     ("f32", "packed", "bf16", True), ("p8_0", "packed", "bf16", True),
     ("f32", "packed", "f32", False), ("p16_1", "packed", "bf16", False),
     ("f32", "bf16", "bf16", True), ("p16_1", "p8_0", "bf16", False),
-    ("f32", "p8_0", "f32", False), ("f32", "p16_1", "bf16", False),
+    ("f32", "p8_0", "f32", False), ("f32", "p16_1", "bf16", True),
+    ("bf16", "p16_1", "bf16", True), ("p8_0", "p16_1", "bf16", True),
+    ("f32", "p16_1", "f32", False), ("p16_1", "p16_1", "bf16", False),
     ("f32", "f32", "bf16", False)])
 def test_tensor_core_pairs(a_fmt, b_fmt, cd, want):
-    """The pairs that go to the bf16 tensor cores: bf16 compute, B p8 or bf16,
-    A f32/bf16/p8; p16 or f32 B and f32 compute stay on the FMA kernels."""
+    """The pairs that go to the bf16 tensor cores: bf16 compute, B p8, p16 or
+    bf16, A f32/bf16/p8; f32 B, p16 A and f32 compute stay on the FMA
+    kernels."""
     kind = {"f32": 0, "bf16": 1, "p8_0": 2, "p8_3": 2, "p16_1": 3, "packed": 4}
     assert uses_tensor_cores(kind[a_fmt], kind[b_fmt], cd == "bf16") is want
+
+
+@pytest.mark.parametrize("b_kind,tc,want", [
+    (2, True, "posit_gemm"), (1, True, "posit_gemm"), (3, True, "posit_gemm_p16"),
+    (3, False, "posit_gemm"), (0, False, "posit_gemm"), (4, True, "posit_gemm_packed"),
+    (4, False, "posit_gemm_packed_fma")])
+def test_launch_counter_names_each_route(b_kind, tc, want):
+    """Each route's launches count under a key of their own: p16 B on the
+    tensor cores apart from the unpacked kernel's other launches."""
+    from repro_torch import kernels
+    from repro_torch.kernels.posit_gemm.ops import launch_counter
+
+    assert launch_counter(b_kind, tc) == want and want in kernels.LAUNCHES
+
+
+@pytest.mark.parametrize("a_name", ["f32", "bf16", "p8_0"])
+@pytest.mark.parametrize("act,has_bias,has_res", [("silu", True, True), ("none", False, False)])
+def test_p16_weights_bf16_compute_match_pallas(a_name, act, has_bias, has_res):
+    """p16 B under bf16 compute (the mixed path's q/k/v/o, the pairs the
+    kernel runs on tensor cores): the port's plain version against the
+    Pallas kernel in interpret mode with ``compute_dtype_name="bfloat16"``,
+    both rounding the decoded weight and A to bf16; ``_check``'s bound on
+    the bf16-rounded values."""
+    rng = np.random.default_rng(zlib.crc32(f"p16bf16/{a_name}/{act}".encode()))
+    a = _operand(a_name, (M, K), rng, 1.0)
+    b = _operand("p16_1", (K, N), rng, K ** -0.5).copy()
+    b[3, :5] = [0x7FFF, 0x0001, 0x8001, 0xFFFF, 0]   # +-maxpos, +-minpos, zero
+    bias = rng.normal(0, 0.1, (N,)).astype(np.float32) if has_bias else None
+    res = rng.normal(0, 1.0, (M, N)).astype(np.float32) if has_res else None
+    ja, jb = jtypes.get_format(a_name), jtypes.P16_1
+    es = [getattr(ja, "es", 0), 1, 0]
+    want = np.asarray(jax_posit_gemm(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(es, jnp.int32), a_fmt=ja, b_fmt=jb,
+        out_fmt=jtypes.F32, bias=None if bias is None else jnp.asarray(bias),
+        residual=None if res is None else jnp.asarray(res), activation=act,
+        compute_dtype_name="bfloat16", block_m=8, block_n=128, block_k=128,
+        interpret=True))
+    got = posit_gemm(_to_torch(a), _to_torch(b), es, a_fmt=types.get_format(a_name),
+                     b_fmt=types.P16_1, out_fmt=types.F32,
+                     bias=None if bias is None else torch.from_numpy(bias),
+                     residual=None if res is None else torch.from_numpy(res),
+                     activation=act, compute_dtype=torch.bfloat16).numpy()
+    assert got.shape == (M, N) and np.isfinite(got).all()
+
+    def rounded(x):
+        return np.asarray(jnp.asarray(x, jnp.float32).astype(jnp.bfloat16), np.float64)
+
+    _check(got, want, "f32", rounded(_values(a, a_name)), rounded(_values(b, "p16_1")),
+           bias, res)
 
 
 def test_unported_variants_raise():

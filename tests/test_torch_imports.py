@@ -110,7 +110,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {"posit_decode", "posit_encode", "posit_gemm",
                                      "posit_gemm_packed", "posit_gemm_packed_fma",
-                                     "posit_attention", "posit_quire_gemm", "posit_softmax"}
+                                     "posit_gemm_p16", "posit_attention",
+                                     "posit_quire_gemm", "posit_softmax"}
 
 
 def test_wrappers_refuse_mixed_devices():
