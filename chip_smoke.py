@@ -26,9 +26,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      in one chunk) that send products through its per-product branch; the
      share of products that take that branch, per case; the quire GEMM on
      packed and on unpacked p8 weights, bit for bit the same;
-  4. the decode-attention kernel against its plain version (qwen2.5-14b's
-     and phi3-mini-3.8b's head shapes); the softmax kernel against its plain
-     version (within 1 posit ulp), up to qwen's vocabulary, with a NaR row;
+  4. the decode-attention kernel against its plain version (ATTN_CHECKS:
+     qwen2.5-14b's and phi3-mini-3.8b's heads, head_dim 256 at 7 q-heads a KV
+     head, p8, p16 and f32 KV, ragged rows, S up to 4,096), and its fused
+     append (the decode step's call) at S 80 and 4,096: each case within the
+     f32 contract's limit and a tight one that two bf16 controls must fail,
+     the cache codes bit for bit those of the encode kernel and the row
+     write, the output bit for bit the unfused call's, each row's bits alone
+     and in the batch, the CPU emulation's warps a block the kernel's; the
+     softmax kernel against its plain version (within 1 posit ulp), up to
+     qwen's vocabulary, with a NaR row;
   5. the reduced qwen2.5-14b (P8_SERVE, and the per-layer presets
      p8-packed and attn-p16-mlp-p8) and the reduced phi3-mini-3.8b (p16
      under the quire) on the card against the same models on the CPU (plain
@@ -47,27 +54,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      - phi3-mini-3.8b at full width and depth under
        weights=p16_1,kv=p16_1,dataflow=quire, 4 requests (prompt 32, gen 8,
        4 slots, greedy): every linear through the quire GEMM;
+     - the long context: qwen2.5-14b at full width and depth, P8_SERVE, 4
+       requests of 4,032 prompt tokens and 64 generated, 4 slots, S_max
+       4,096;
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
-     and a profiled decode step of each served model (the P8_SERVE step
-     must run no split-K epilogue kernel; the mixed step 192 p16 and 145
-     packed tensor-core GEMM launches, no p16 f32-FMA kernel and no split-K
-     epilogue kernel; the quire step one kernel a quire
-     GEMM call, no readout or split-sum kernel), with the quire step's share
-     of per-product-branch products;
+     and a profiled decode step of each served model and of the long
+     context (every step one attention launch a layer, no encode launch
+     but the quire linears' own, one a call, and no index kernel but the
+     embedding's: the KV rows are written inside the attention kernel; the
+     P8_SERVE step must run no split-K epilogue kernel; the mixed step 192
+     p16 and 145 packed tensor-core GEMM launches, no p16 f32-FMA kernel
+     and no split-K epilogue kernel; the quire step one
+     kernel a quire GEMM call, no readout or split-sum kernel), with the
+     quire step's share of per-product-branch products;
   6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call; the GEMM also at
      every decode and prefill (M = 64) shape of qwen2.5-14b, its packed
      variants there beside the unpacked kernel, the p16 weights (tensor
      cores under bf16 compute, f32 FMA under f32) at the attention
      projections' decode and prefill shapes, the quire GEMM at every phi3
-     decode (M = 4, lm_head included) and prefill (M = 32) shape.
+     decode (M = 4, lm_head included) and prefill (M = 32) shape, and decode
+     attention read cold at S = 80 to 32,768 (``attention_timings``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
 time from torch.profiler (``time_ms``). kernel_timings.py reuses phase 6's
-GEMM (packed and p16 included), quire GEMM and softmax timings to compare
-two checkouts on one card.
+GEMM (packed and p16 included), quire GEMM, softmax and attention timings to
+compare two checkouts on one card.
 """
 from __future__ import annotations
 
@@ -92,6 +106,7 @@ from repro_torch.core.types import (BF16, F32, P8_0, P8_1, P8_2, P8_3, P16_1,  #
                                     PositFmt)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.posit_attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.posit_attention import ref as attn_ref  # noqa: E402
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref  # noqa: E402
 from repro_torch.kernels.posit_codec import ops as codec_ops  # noqa: E402
 from repro_torch.kernels.posit_codec import ref as codec_ref  # noqa: E402
@@ -701,37 +716,133 @@ def check_quire_gemm() -> dict:
 # --------------------------------------------------------------- phase 4 ----
 
 def attn_inputs(kv_bits, *, B=4, Hq=40, Hkv=8, d=128, S=512, lengths=(0, 1, 300, 512),
-                seed=0):
+                seed=0, es=0):
     g = gen(seed)
     q = torch.randn((B, Hq, d), generator=g, device=DEV)
     k = torch.randn((B, Hkv, S, d), generator=g, device=DEV)
     v = torch.randn((B, Hkv, S, d), generator=g, device=DEV)
     if kv_bits:
-        k = codec_ops.encode(k, 0, nbits=kv_bits)
-        v = codec_ops.encode(v, 0, nbits=kv_bits)
+        k = codec_ops.encode(k, es, nbits=kv_bits)
+        v = codec_ops.encode(v, es, nbits=kv_bits)
     lens = torch.tensor(lengths, dtype=torch.int32, device=DEV)
     return q, k, v, lens
 
 
+# (name, kv_bits, es, Hq, Hkv, d, S, lengths) of phase 4's kernel checks:
+# qwen2.5-14b's heads (40/8, d 128), phi3-mini-3.8b's (32/32, d 96) and
+# gemma3-4b's head_dim (256) at 7 q-heads a KV head; ragged rows (0, 1, mid, S)
+ATTN_CHECKS = (
+    ("qwen p8 S512", 8, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
+    ("qwen p16 S512", 16, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
+    ("qwen f32 S512", 0, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
+    ("qwen p8 S4096", 8, 0, 40, 8, 128, 4096, (0, 1, 2051, 4096)),
+    ("phi3 p16_1 d96 S4096", 16, 1, 32, 32, 96, 4096, (0, 1, 2051, 4096)),
+    ("d256 7 q-heads p8 S4096", 8, 0, 28, 4, 256, 4096, (0, 1, 2051, 4096)),
+    ("d256 7 q-heads f32 S1000", 0, 0, 28, 4, 256, 1000, (0, 1, 513, 1000)),
+)
+
+
+# The tight limit: 64 u max|V|, the contract's bound without its length term.
+# The kernel keeps f32 accuracy (q and P in three bf16 pieces); its error is
+# ~1e-6 at max|V| ~4 in every phase-4 case, and one bf16 piece for P (or for
+# q and P) gives 2^-9-sized errors, ~1e-4 and more, on the same inputs.
+TIGHT_ULPS = 64
+
+
+def attention_bf16_control(q, k, v, lens, es, kv_bits, *, q_bf16: bool) -> torch.Tensor:
+    """The kernel's arithmetic with P (and q when ``q_bf16``) as one bf16
+    piece instead of three, in f64 otherwise: the control the limits must
+    reject. P is rounded before the PV product; the softmax sum stays exact,
+    as the kernel keeps it in f32."""
+    B, Hq, d = q.shape
+    _, Hkv, S, _ = k.shape
+    kv, vv = ((codec_ref.decode_ref(t, es, nbits=kv_bits) if kv_bits else t).double()
+              for t in (k, v))
+    qd = (q.bfloat16() if q_bf16 else q).double().reshape(B, Hkv, Hq // Hkv, d)
+    valid = (torch.arange(S, device=q.device)[None] < lens[:, None])[:, None, None]
+    s = torch.where(valid, torch.einsum("bkgd,bksd->bkgs", qd, kv) / d ** 0.5, -1e300)
+    e = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = e.sum(-1, keepdim=True)
+    out = torch.einsum("bkgs,bksd->bkgd", e.float().bfloat16().double(),
+                       torch.where(valid[:, :, 0, :, None], vv, 0.0))
+    return (out / torch.where(l == 0, 1.0, l)).reshape(B, Hq, d).float()
+
+
+def attention_case_errors(name, got, q, k, v, lens, es, kv_bits, d, S) -> dict:
+    """The kernel's error on a case against the contract's limit and the
+    tight one, beside the bf16 controls' errors; raises if the kernel fails
+    either limit or the tight limit passes a control."""
+    want = posit_decode_attention_ref(q, k, v, lens, es, kv_bits=kv_bits)
+    vmax = float((codec_ref.decode_ref(v, es, nbits=kv_bits) if kv_bits else v).abs().max())
+    row = {"case": name, "max_abs_err": float((got - want).abs().max()),
+           "limit": 4 * (d + 2 * S) * U * vmax, "tight_limit": TIGHT_ULPS * U * vmax}
+    for key, q_bf16 in (("bf16_p_err", False), ("bf16_qp_err", True)):
+        ctl = attention_bf16_control(q, k, v, lens, es, kv_bits, q_bf16=q_bf16)
+        row[key] = float((ctl - want).abs().max())
+        assert row[key] > row["tight_limit"], \
+            f"attention {name}: the tight limit passes the {key[:-4]} control ({row}"
+    assert row["max_abs_err"] <= row["limit"], f"attention {name}: {row}"
+    assert row["max_abs_err"] <= row["tight_limit"], f"attention {name}: {row}"
+    return row
+
+
 def check_attention() -> dict:
-    worst = 0.0
-    # qwen2.5-14b's heads at each KV kind, then phi3-mini-3.8b's (d 96, 32/32, p16)
-    cases = [(kv_bits, {}) for kv_bits in (8, 16, 0)]
-    cases.append((16, dict(Hq=PHI3.n_heads, Hkv=PHI3.n_kv, d=PHI3.hd)))
-    for kv_bits, shape in cases:
-        q, k, v, lens = attn_inputs(kv_bits, **shape)
-        got = attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=kv_bits)
-        want = posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=kv_bits)
-        vmax = float(codec_ref.decode_ref(v, 0, nbits=kv_bits).abs().max()) if kv_bits \
-            else float(v.abs().max())
-        err = float((got - want).abs().max())
-        # f32 throughout; the score dot (d terms), softmax sum and PV sum (S
-        # terms each) run in other orders: (d + 2S) * u * max|V| * 4
-        tol = 4 * (q.shape[-1] + 2 * k.shape[2]) * U * vmax
-        assert err <= tol, f"attention kv_bits={kv_bits}: error {err} > {tol}"
-        assert bool((got[0] == 0).all()), "a length-0 row must return exact zeros"
-        worst = max(worst, err)
-    return {"max_abs_err": worst, "cases": ["qwen p8", "qwen p16", "qwen f32", "phi3 p16 d96"]}
+    """The kernel against its plain version on every ATTN_CHECKS case and on
+    the fused append's, within 4 * (d + 2S) * u * max|V| (f32 throughout; the
+    score dot, the softmax sum and the PV sum run in other orders) and within
+    the tight limit, which the bf16 controls must fail; at S = 80 a bf16 P
+    must fail the contract's limit as well (why P and q take three pieces).
+    Length-0 rows exact zeros; the fused append (the decode step's call) at
+    qwen's heads: its cache codes bit for bit those of the encode kernel +
+    the row write, a row at pos >= S untouched, its output bit for bit the
+    unfused kernel's on the written cache; each row's bits alone and inside
+    the batch; the CPU emulation's warps a block those of the kernel."""
+    rows = []
+    for name, kv_bits, es, Hq, Hkv, d, S, lengths in ATTN_CHECKS:
+        q, k, v, lens = attn_inputs(kv_bits, Hq=Hq, Hkv=Hkv, d=d, S=S, lengths=lengths,
+                                    seed=S + d, es=es)
+        got = attn_ops.decode_attention(q, k, v, lens, es, kv_bits=kv_bits)
+        rows.append(attention_case_errors(name, got, q, k, v, lens, es, kv_bits, d, S))
+        assert bool((got[0] == 0).all()), f"attention {name}: a length-0 row must be zeros"
+        assert attn_ref.kernel_warps(d, k.element_size(), kv_bits) == \
+            attn_ops.kernel_warps(kv_bits, k.dtype, d), f"attention {name}: warps a block"
+        del q, k, v, got
+    appended = []
+    for kv_bits, S in ((8, 80), (8, 4096), (16, 4096)):
+        q, k, v, lens = attn_inputs(kv_bits, S=S, lengths=(3, S, S, 0), seed=S + kv_bits)
+        pos = torch.tensor([2, S, S - 1, 0], dtype=torch.int32, device=DEV)
+        kn, vn = (torch.randn((4, QWEN.n_kv, QWEN.hd), generator=gen(S + i), device=DEV)
+                  for i in range(2))
+        k_want, v_want = k.clone(), v.clone()
+        for cache, new in ((k_want, kn), (v_want, vn)):  # the encode kernel, the row write
+            attn_ref.store_row(cache, codec_ops.encode(new, 0, nbits=kv_bits), pos, 0,
+                               kv_bits=0)
+        got = attn_ops.decode_attention_append(q, kn, vn, k, v, pos, lens, 0, kv_bits=kv_bits)
+        assert torch.equal(k, k_want) and torch.equal(v, v_want), \
+            f"append p{kv_bits} S{S}: cache codes differ from encode + the row write"
+        unfused = attn_ops.decode_attention(q, k_want, v_want, lens, 0, kv_bits=kv_bits)
+        assert torch.equal(bits(got), bits(unfused)), \
+            f"append p{kv_bits} S{S}: output differs from the unfused kernel's bits"
+        for b in range(4):
+            alone = attn_ops.decode_attention(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                                              v[b:b + 1].contiguous(), lens[b:b + 1], 0,
+                                              kv_bits=kv_bits)
+            assert torch.equal(bits(alone[0]), bits(unfused[b])), \
+                f"append p{kv_bits} S{S}: row {b} alone differs from row {b} in the batch"
+        row = attention_case_errors(f"append p{kv_bits} S{S}", got, q, k, v, lens, 0, kv_bits,
+                                    QWEN.hd, S)
+        if S == 80:
+            assert row["bf16_p_err"] > row["limit"], \
+                f"append p{kv_bits} S{S}: a bf16 P holds the contract's limit ({row})"
+        rows.append(row)
+        appended.append(f"p{kv_bits} S{S}")
+        del q, k, v, k_want, v_want
+    torch.cuda.empty_cache()
+    DETAILS["attention_checks"] = rows
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "cases": [r["case"] for r in rows],
+            "min_control_over_tight": min(r["bf16_p_err"] / r["tight_limit"] for r in rows),
+            "append_bit_exact": appended, "batch_invariant": appended}
 
 
 def check_softmax() -> dict:
@@ -828,6 +939,31 @@ def run_main_path() -> tuple[dict, dict]:
     assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the main path"
     assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
     DETAILS["serve_events"] = events
+    return report, launches
+
+
+LONG_PROMPT, LONG_GEN = 4032, 64   # the long-context path: S_max 4,096
+
+
+def run_long_path() -> tuple[dict, dict]:
+    """qwen2.5-14b at full width and depth, P8_SERVE, 4 requests of 4,032
+    prompt tokens and 64 generated, 4 slots, greedy, S_max 4,096: decode
+    attention over caches of ~4,000 positions (1.6 GB of p8 K/V)."""
+    events = []
+    kernels.reset_launches()
+    report = serve("qwen2.5-14b", policy="p8-serve", max_slots=4, requests=4,
+                   prompt_len=LONG_PROMPT, gen=LONG_GEN, seed=0, device="cuda",
+                   emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    for name in P8_PATH_KERNELS:
+        assert launches[name] > 0, f"kernel {name} was not launched on the long path"
+    assert report["requests"] == 4, report["requests"]
+    assert all(n == LONG_GEN for n in report["completion_tokens"].values()), \
+        report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the long path"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
+    DETAILS["long_serve_events"] = events
     return report, launches
 
 
@@ -958,9 +1094,12 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     step_launches = {k: (kernels.LAUNCHES[k] - before[k]) / steps for k in before}
     quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - before["posit_quire_gemm"]
     shares = quire_step_share(eng) if share else None
-    # kernels only: the aten::* rows repeat their kernels' device time
+    # kernels only: the aten::* rows repeat their kernels' device time, and a
+    # runtime call's row (cudaLaunchKernel, in the first profile of a
+    # process) its launches
     by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                      if e.self_device_time_total > 0 and not e.key.startswith("aten::")),
+                      if e.self_device_time_total > 0
+                      and not e.key.startswith(("aten::", "cuda"))),
                      key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
     epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
@@ -974,6 +1113,8 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
             key = f"{m.group(1)} B kind {m.group(3)}"
             variants[key] = variants.get(key, 0) + c / steps
             variants_us[key] = variants_us.get(key, 0.0) + us / steps
+    # the gather / index_put kernels (a KV write outside the attention kernel)
+    index_kernels = sum(c for n, _, c in by_name if "index" in n.lower())
     quire_kernels = sum(c for n, _, c in by_name if "quire" in n)
     quire_readouts = sum(c for n, _, c in by_name if "quire" in n and "readout" in n)
     del eng, params, model
@@ -989,11 +1130,28 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
             "gemm_kernels_per_step": variants,
             "gemm_kernel_us_per_step": variants_us,
             "quire_kernels_per_step": quire_kernels / steps,
+            "index_kernels_per_step": index_kernels / steps,
+            "launches_all_kernels_per_step": sum(c for _, _, c in by_name) / steps,
             "quire_readout_kernels_per_step": quire_readouts / steps,
             "quire_per_product_share": shares,
             "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
             "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
                      c / steps} for n, us, c in by_name[:14]]}
+
+
+def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0) -> None:
+    """A decode step writes its K/V rows inside the attention kernel: one
+    attention launch a layer, no encode launch beyond ``encodes`` and no
+    gather or index_put kernel of a KV write."""
+    per_step = prof["launches_per_step"]
+    assert per_step["posit_attention"] == arch.n_layers, \
+        f"{name} decode step: {per_step['posit_attention']} attention launches"
+    assert per_step["posit_encode"] == encodes, \
+        f"{name} decode step: {per_step['posit_encode']} encode launches, {encodes} expected"
+    # one gather a step is the token embedding's; a KV write outside the
+    # kernel adds two a layer
+    assert prof["index_kernels_per_step"] <= 1, \
+        f"{name} decode step: {prof['index_kernels_per_step']} index kernels"
 
 
 def quire_step_share(eng) -> dict:
@@ -1168,6 +1326,81 @@ def softmax_timings() -> dict:
     return out
 
 
+# (name, kv_bits, es, Hq, Hkv, d, S, lengths) of attention_timings: qwen2.5-14b's
+# heads with p8_0 KV, every row full, at the served S_max (80) and longer
+# caches; one ragged batch; p16_1 KV; phi3-mini-3.8b's heads with p16_1 KV
+ATTN_TIMINGS = (
+    ("qwen p8 S80", 8, 0, 40, 8, 128, 80, (80,) * 4),
+    ("qwen p8 S512", 8, 0, 40, 8, 128, 512, (512,) * 4),
+    ("qwen p8 S4096", 8, 0, 40, 8, 128, 4096, (4096,) * 4),
+    ("qwen p8 S32768", 8, 0, 40, 8, 128, 32768, (32768,) * 4),
+    ("qwen p8 S4096 ragged", 8, 0, 40, 8, 128, 4096, (0, 1, 2048, 4096)),
+    ("qwen p16_1 S4096", 16, 1, 40, 8, 128, 4096, (4096,) * 4),
+    ("phi3 p16_1 S4096", 16, 1, 32, 32, 96, 4096, (4096,) * 4),
+)
+COLD_BYTES = 100e6  # distinct caches a timing rotates through, more than L2 holds
+
+
+def _rotated(tensors: tuple, n: int) -> list:
+    return [tensors] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def attention_timings() -> list:
+    """The attention kernel at each ATTN_TIMINGS case, device ms, read cold as
+    a real step reads each layer's cache: every call takes the next of enough
+    copies of the cache that their bytes exceed COLD_BYTES. Beside it the
+    byte bound (the live codes once, q and out) and one
+    scaled_dot_product_attention call on the decoded f32 cache (the same
+    rotation), with enable_gqa where this torch has it."""
+    import itertools
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for name, kv_bits, es, Hq, Hkv, d, S, lengths in ATTN_TIMINGS:
+        q, k, v, lens = attn_inputs(kv_bits, Hq=Hq, Hkv=Hkv, d=d, S=S, lengths=lengths,
+                                    seed=S + 1, es=es)
+        live = sum(lengths)
+        nbytes = 2 * live * Hkv * d * k.element_size() + 2 * q.numel() * 4 + lens.numel() * 4
+        b_ms, by = bound_ms(nbytes, 4.0 * Hq * d * live, "f32")
+        caches = _rotated((k, v), 1 + int(COLD_BYTES // (2 * k.numel() * k.element_size())))
+        turn = itertools.cycle(caches)
+
+        def kernel():
+            kc, vc = next(turn)
+            attn_ops.decode_attention(q, kc, vc, lens, es, kv_bits=kv_bits)
+
+        ms = time_ms(kernel)
+        n_rot = len(caches)
+        del caches, turn
+        torch.cuda.empty_cache()
+        kd, vd = ((codec_ops.decode(t, es, nbits=kv_bits) if kv_bits else t) for t in (k, v))
+        mask = (torch.arange(S, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+        qs = q[:, :, None]
+        try:
+            sdpa(qs, kd, vd, attn_mask=mask, enable_gqa=True)
+            gqa = True
+        except TypeError:   # a torch without enable_gqa: K/V repeated per q-head
+            kd, vd = (t.repeat_interleave(Hq // Hkv, dim=1) for t in (kd, vd))
+            gqa = False
+        lib_caches = _rotated((kd, vd), 1 + int(COLD_BYTES // (2 * kd.numel() * 4)))
+        lib_turn = itertools.cycle(lib_caches)
+
+        def library():
+            kc, vc = next(lib_turn)
+            if gqa:
+                sdpa(qs, kc, vc, attn_mask=mask, enable_gqa=True)
+            else:
+                sdpa(qs, kc, vc, attn_mask=mask)
+
+        rows.append({"case": name, "ms": ms, "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": time_ms(library), "library_enable_gqa": gqa,
+                     "bytes": nbytes, "rotated_caches": n_rot,
+                     "library_rotated_caches": len(lib_caches)})
+        del q, k, v, kd, vd, lib_caches, lib_turn
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_kernels(launches: dict, errs: dict) -> list:
     """One row per kernel; ``launches`` maps each kernel to its count on the
     path it belongs to."""
@@ -1180,8 +1413,9 @@ def time_kernels(launches: dict, errs: dict) -> list:
                      "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
                      "library_ms": library_ms})
 
-    # encode: the K (or V) row every decode step writes, (B, Hkv, 1, hd) at 4 slots
-    x = torch.randn((4, QWEN.n_kv, 1, QWEN.hd), generator=gen(2), device=DEV)
+    # encode: the K (or V) block a prefill of the main path writes, (1, Hkv, 64,
+    # hd); a decode step's row is encoded inside the attention kernel
+    x = torch.randn((1, QWEN.n_kv, 64, QWEN.hd), generator=gen(2), device=DEV)
     row("posit_encode", "src/repro_torch/csrc/posit_codec.cu",
         "src/repro/kernels/posit_codec/posit_codec.py:77",
         time_ms(lambda: codec_ops.encode(x, 0, nbits=8)),
@@ -1248,6 +1482,7 @@ def time_kernels(launches: dict, errs: dict) -> list:
     DETAILS["attention_S512_ms"] = time_ms(
         lambda: attn_ops.decode_attention(q5, k5, v5, l5, 0, kv_bits=8))
     del q, k, v, kd, vd, q5, k5, v5
+    DETAILS["attention_timings"] = attention_timings()
     # quire GEMM: the decode-step gate/up of phi3 at 4 slots, p16 x p16 -> f32;
     # every phi3 decode and prefill shape goes to the details
     shapes = quire_timings(4, PHI3_KN + (PHI3_LM_HEAD,), plain=True)
@@ -1341,13 +1576,25 @@ def main() -> int:
     log("quire_path", seconds=time.perf_counter() - t0, launches=q_launches,
         **{k: q_report[k] for k in keys})
     DETAILS["quire_serve_report"] = q_report
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    l_report, l_launches = run_long_path()
+    log("long_path", seconds=time.perf_counter() - t0, launches=l_launches,
+        **{k: l_report[k] for k in keys})
+    DETAILS["long_serve_report"] = l_report
+    torch.cuda.empty_cache()
     sm_res, sm_launches = run_softmax_path()
     log("softmax_path", launches=sm_launches, **sm_res)
     prof = profile_decode()
     log("profile", **{k: v for k, v in prof.items() if k != "top"})
     assert prof["splitk_epilogue_calls_per_step"] == 0, \
         "the P8_SERVE decode step still launches a split-K epilogue kernel"
+    assert_kv_write_fused(prof, QWEN, "P8_SERVE")
     DETAILS["decode_profile"] = prof
+    l_prof = profile_decode(prompt_len=LONG_PROMPT)
+    log("profile_long", **{k: v for k, v in l_prof.items() if k != "top"})
+    assert_kv_write_fused(l_prof, QWEN, "long-context")
+    DETAILS["long_decode_profile"] = l_prof
     m_prof = profile_decode(QWEN, mixed_policy)
     log("profile_mixed", **{k: v for k, v in m_prof.items() if k != "top"})
     # q/k/v/o of 48 layers at p16 on the tensor cores, no f32-FMA kernel and
@@ -1364,6 +1611,7 @@ def main() -> int:
         "the mixed decode step still launches a split-K epilogue kernel"
     assert m_prof["gemm_kernels_per_step"].get("tc_gemm_kernel B kind 4") == \
         3 * QWEN.n_layers + 1, m_prof["gemm_kernels_per_step"]
+    assert_kv_write_fused(m_prof, QWEN, "mixed")
     DETAILS["mixed_decode_profile"] = m_prof
     q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32, share=True)
     log("profile_quire", **{k: v for k, v in q_prof.items() if k != "top"})
@@ -1372,6 +1620,9 @@ def main() -> int:
     assert q_prof["quire_gemm_calls_per_step"] > 0 and \
         q_prof["quire_kernels_per_step"] == q_prof["quire_gemm_calls_per_step"], \
         "a quire GEMM call launched other than one kernel"
+    # the quire linears encode their activations (one encode a call); the KV
+    # write adds none
+    assert_kv_write_fused(q_prof, PHI3, "quire", q_prof["quire_gemm_calls_per_step"])
     DETAILS["quire_decode_profile"] = q_prof
 
     errs = {"posit_encode": codec_res["encode_max_abs_err"],
@@ -1384,7 +1635,7 @@ def main() -> int:
             "posit_softmax": softmax_res["max_abs_err"]}
     DETAILS["path_launches"] = {"p8_serve": launches, "mixed": m_launches,
                                 "mixed_f32": f_launches, "quire": q_launches,
-                                "softmax": sm_launches}
+                                "long": l_launches, "softmax": sm_launches}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
                     posit_gemm_p16=m_launches["posit_gemm_p16"],
                     posit_gemm_packed_fma=f_launches["posit_gemm_packed_fma"],

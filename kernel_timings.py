@@ -1,13 +1,14 @@
-"""Device times of the fused posit GEMM, the quire GEMM and the posit softmax
-on one NVIDIA GPU, for this checkout's package or for another checkout's:
+"""Device times of the fused posit GEMM, the quire GEMM, the posit softmax and
+decode attention on one NVIDIA GPU, for this checkout's package or for
+another checkout's:
 
-    python3 kernel_timings.py [--src DIR]
+    python3 kernel_timings.py [--src DIR] [--profiles]
 
 DIR is the ``src`` directory of another checkout, for example the parent
 commit unpacked with ``git archive`` under ``build/`` (which .gitignore
 lists). Run it in turns with this checkout's (parent, change, change,
 parent) in one call on one card to compare two versions. It builds that
-package's codec, GEMM, quire GEMM and softmax kernels, then times, with
+package's codec, GEMM, attention, quire GEMM and softmax kernels, then times, with
 chip_smoke.py's phase-6 functions: the GEMM at every qwen2.5-14b decode
 (M = 4) and prefill (M = 64, no lm_head) shape beside its bound and
 torch.matmul bf16 on the decoded weight; where the package has them, the
@@ -20,8 +21,17 @@ bf16 on the bf16-rounded decoded weight and f32 (TF32 off) and the kernel on
 that bf16 weight (the same bytes, no decode); the quire GEMM at every
 phi3-mini-3.8b decode (M = 4, lm_head 3072 x 32064 included) and prefill
 (M = 32) shape beside its bound (bytes, or one int8 tensor-core MAC a
-product) and a per-product loop's floor (4 int32 operations a product); and
-the softmax beside torch.softmax on the decoded rows.
+product) and a per-product loop's floor (4 int32 operations a product);
+the softmax beside torch.softmax on the decoded rows; and decode attention
+(``attention_timings``) at qwen2.5-14b's heads with p8 KV at S = 80, 512,
+4,096 and 32,768, a ragged batch and p16 KV at 4,096, and phi3-mini-3.8b's
+heads with p16 KV at 4,096, each read cold, beside its byte bound and
+scaled_dot_product_attention on the decoded f32 cache.
+With --profiles it also profiles one decode step of qwen2.5-14b under
+P8_SERVE and under attn-p16-mlp-p8 over p8-serve, and of phi3-mini-3.8b
+under the quire (chip_smoke.py ``profile_decode``: device time, device
+kernels and the wrappers' launches a step), so a step's before and after
+come from one card.
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -50,8 +60,8 @@ def main() -> int:
     import chip_smoke as smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_quire_gemm",
-                                 "posit_softmax"))
+    seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_attention",
+                                 "posit_quire_gemm", "posit_softmax"))
     res = {"src": str(src), "build_seconds": seconds,
            "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),
            "gemm_prefill": smoke.gemm_timings(64, smoke.GEMM_KN[:-1]),
@@ -65,10 +75,22 @@ def main() -> int:
         quire_decode=smoke.quire_timings(4, smoke.PHI3_KN + (smoke.PHI3_LM_HEAD,)),
         quire_prefill=smoke.quire_timings(32, smoke.PHI3_KN),
         softmax=smoke.softmax_timings(),
+        attention=smoke.attention_timings(),
         profiler_empty_windows=smoke.DETAILS.get("profiler_empty_windows", 0),
         nvidia_smi=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                    "--format=csv,noheader"], capture_output=True, text=True,
                                   check=True).stdout.strip())
+    if "--profiles" in sys.argv:
+        from repro_torch.core.policy import get_precision_policy
+
+        keep = ("step_ms", "device_busy_us_per_step", "device_idle_share",
+                "launches_per_step", "launches_all_kernels_per_step", "top")
+        for name, args in (("p8_serve", (smoke.QWEN, smoke.P8_SERVE)),
+                           ("mixed", (smoke.QWEN, get_precision_policy(
+                               smoke.MIXED, base=smoke.P8_SERVE))),
+                           ("quire", (smoke.PHI3, smoke.parse_policy(smoke.QUIRE_SPEC)))):
+            prof = smoke.profile_decode(*args, prompt_len=64 if name != "quire" else 32)
+            res[f"profile_{name}"] = {k: v for k, v in prof.items() if k in keep}
     print(json.dumps({"timings": res}))
     return 0
 

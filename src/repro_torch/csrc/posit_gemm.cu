@@ -98,6 +98,10 @@ using posit::kBF16;
 using posit::kF32;
 using posit::kP16;
 using posit::kP8;
+using posit::fill_p16_table;
+using posit::kP16TabBytes;
+using posit::p16_f32;
+using posit::p16_magnitude;
 
 // Storage kind of a packed p8 B: two codes a uint16 word, split-K lanes.
 constexpr int kP8x2 = 4;
@@ -142,67 +146,6 @@ __device__ __forceinline__ void emit(const GemmArgs& g, long long idx, int n, fl
 
 __device__ __forceinline__ float to_compute(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-// ---- p16 decode through a class table ----
-// Within one class of magnitude codes a (regime run m, first regime bit r0),
-// the f32 bits of the value are linear in a:
-//   bits = ((k * 2^es + 127) << 23) + (ef << sh),  sh = 9 + m + es,
-// where ef is the field after the regime's terminator (exponent bits, then
-// fraction; a truncated exponent lands in the exponent field all the same).
-// The bits above ef are the class's regime, so bits = T + (a << sh) mod 2^32
-// with one word T a class, whose low 23 bits are zero. `a >> 7` fixes the
-// class unless the run reaches bit 7 (rows 0 and 255: values below
-// 2^(-7 * 2^es) or from 2^(7 * 2^es) on); those rows point to a second level
-// of one word per code, indexed by `a & 0xFF`. Row 256 is NaR's. A word
-// holds T + sh (sh in bits 0-4); the rare rows hold only the flag bit 5. A
-// row holds one copy a lane, so a warp's 32 loads hit 32 distinct banks.
-// core/lut.py's split table is the same idea with OR in place of the add,
-// which needs the exponent bits inside the first byte too (its second level
-// takes 16 of 128 rows at es 3); the add needs only the regime there. bf16
-// is one hardware RNE of the exact value, two codes at a time.
-// repro_torch/kernels/posit_gemm/ref.py `p16_table_decode` emulates it on the
-// CPU, tested bit for bit against the reference decode for every code.
-constexpr int kP16Rows = 257;              // a >> 7: 0..255, and NaR's 256
-constexpr int kP16L1 = kP16Rows * 128;     // bytes: row r, lane l at r * 128 + l * 4
-constexpr int kP16TabBytes = kP16L1 + 256 * 4;
-constexpr uint32_t kP16Rare = 0x20u;
-
-// The table word T + sh of magnitude code a (0 .. 0x8000) at `es`.
-__device__ uint32_t p16_word(uint32_t a, int es) {
-  // NaR: T + (0x8000 << 16) = 0xFFC00000, whose sign the code's sign clears
-  if (a == 0x8000u) return 0x7FC00000u + 16u;
-  int m, k;
-  posit::regime(a, 16, m, k);
-  const int sh = 9 + m + es;  // 10 .. 27
-  return __float_as_uint(posit::decode(a, 16, es)) - (a << sh) + static_cast<uint32_t>(sh);
-}
-
-// Fills the table at `tab` (kP16TabBytes, 16-byte aligned) for the block.
-__device__ void fill_p16_table(uint8_t* tab, int es, int tid, int nthreads) {
-  for (int r = tid; r < kP16Rows; r += nthreads) {
-    const uint32_t v = r == 0 || r == 255 ? kP16Rare : p16_word(r << 7, es);
-    const uint4 v4 = make_uint4(v, v, v, v);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) reinterpret_cast<uint4*>(tab + r * 128)[(q + r) & 7] = v4;
-  }
-  uint32_t* second = reinterpret_cast<uint32_t*>(tab + kP16L1);
-  for (int i = tid; i < 256; i += nthreads) second[i] = p16_word(i < 128 ? i : 0x7F00 + i, es);
-}
-
-// The f32 bits of the magnitude of the sign-extended p16 code s. `lane4` =
-// lane * 4, the lane's copy of each row.
-__device__ __forceinline__ uint32_t p16_magnitude(int s, const uint8_t* tab, uint32_t lane4) {
-  const uint32_t a = static_cast<uint32_t>(abs(s));
-  uint32_t t = *reinterpret_cast<const uint32_t*>(tab + ((a & 0xFF80u) | lane4));
-  if (t & kP16Rare) t = reinterpret_cast<const uint32_t*>(tab + kP16L1)[a & 0xFFu];
-  return (t & ~0x1Fu) + __funnelshift_l(0u, a, t);  // T + (a << sh)
-}
-
-// The p16 code s as float32, exactly (NaR: 0x7FC00000).
-__device__ __forceinline__ float p16_f32(int s, const uint8_t* tab, uint32_t lane4) {
-  return __uint_as_float(p16_magnitude(s, tab, lane4) ^
-                         (static_cast<uint32_t>(s) & 0x80000000u));
 }
 
 // Two p16 codes (a uint32 word: low half, high half) as two bf16, RNE from

@@ -22,6 +22,9 @@ LAUNCHES: dict[str, int] = {
 }
 
 
+_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -54,3 +57,18 @@ def check_rc(rc: int, name: str) -> None:
 
 def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def zeroed_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters, zero, for a kernel whose last block of a
+    group sums the group's parts (the GEMM's split tiles, attention's splits).
+    One buffer per (device, stream), zeroed once and grown on demand; every
+    kernel leaves its counters zero again. Kernels on one stream run one after
+    another, so they never share a counter while both run; kernels in flight
+    on different streams get different buffers."""
+    key = (device.index or 0, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf

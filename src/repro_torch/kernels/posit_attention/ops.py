@@ -4,6 +4,10 @@ the plain version (``ref.py``) for CPU tensors.
 ``kv_bits=0`` means a float KV cache (f32 or bf16): the codec is bypassed.
 ``rolling=True`` is circular-buffer validity: every slot written so far is
 valid, so lengths clamp to the buffer size.
+
+``decode_attention_append`` is the decode step's fused call: it writes the
+step's new K/V row into the cache (encoded, for a posit cache) and attends
+over the cache including it, in one launch.
 """
 from __future__ import annotations
 
@@ -18,23 +22,32 @@ from repro_torch.kernels.posit_attention import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "posit_attention_launch": (_P,) * 5 + (_I,) * 7 + (ctypes.c_float, _P),
+    "posit_attention_launch": (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _P),
+    "posit_attention_warps": (_I, _I),
 }
 _KV_KIND = {(8, torch.uint8): 2, (16, torch.uint16): 3,
             (0, torch.float32): 0, (0, torch.bfloat16): 1}
-MAX_HEAD_DIM = 128
-MAX_HEADS_PER_KV = 8
+CHUNK = ref.CHUNK  # positions a split
 
 
 def _lib():
     return build.load("posit_attention", _SIGNATURES)
 
 
-def decode_attention(q: torch.Tensor, k_codes: torch.Tensor, v_codes: torch.Tensor,
-                     lengths: torch.Tensor, es: int, *, kv_bits: int,
-                     scale: Optional[float] = None, rolling: bool = False) -> torch.Tensor:
-    """One decode-attention step. q (B, Hq, d) float32; k/v (B, Hkv, S, d);
-    lengths (B,) int32 valid KV length per row. Returns (B, Hq, d)."""
+def _plan(S: int, g: int) -> tuple[int, int]:
+    """(splits, q-head groups) of the kernel's grid at g q-heads a KV head:
+    the plan the scratch is sized by, handed to the launch, which refuses
+    any plan but its own."""
+    return -(-S // CHUNK), -(-g // ref.HEADS)
+
+
+def kernel_warps(kv_bits: int, dtype: torch.dtype, d: int) -> int:
+    """Warps a block of the CUDA kernel at head_dim ``d`` (needs the built
+    library: ``ref.kernel_warps`` is its copy for the CPU emulation)."""
+    return _lib().posit_attention_warps(_KV_KIND[(kv_bits, dtype)], d)
+
+
+def _check(q, k_codes, v_codes, lengths):
     require(q.dim() == 3 and k_codes.dim() == 4 and k_codes.shape == v_codes.shape,
             f"shapes q {tuple(q.shape)}, k {tuple(k_codes.shape)}, v {tuple(v_codes.shape)}")
     B, Hq, d = q.shape
@@ -42,6 +55,55 @@ def decode_attention(q: torch.Tensor, k_codes: torch.Tensor, v_codes: torch.Tens
     require((B, d) == (Bk, dk) and Hq % Hkv == 0,
             f"q {tuple(q.shape)} does not match KV {tuple(k_codes.shape)}")
     require(tuple(lengths.shape) == (B,), f"lengths must be ({B},)")
+
+
+def _launch(q, k_codes, v_codes, lengths, es, kv_bits, scale, append=None):
+    """The kernel on CUDA tensors; ``append`` = (k_new, v_new, pos) or None."""
+    B, Hq, d = q.shape
+    _, Hkv, S, _ = k_codes.shape
+    kind = _KV_KIND.get((kv_bits, k_codes.dtype))
+    require(kind is not None and v_codes.dtype == k_codes.dtype,
+            f"kv_bits={kv_bits} does not take a {k_codes.dtype} cache")
+    require(q.dtype == torch.float32, f"q must be float32, got {q.dtype}")
+    require(lengths.dtype == torch.int32, f"lengths must be int32, got {lengths.dtype}")
+    # the widest head of src/repro/configs (gemma3-4b) is 256
+    require(d <= 256, f"head_dim {d} > 256: the kernel holds at most 256 columns a row")
+    require(d % 16 == 0, f"head_dim {d} is not a multiple of 16, the kernel's MMA tile")
+    tensors = [("q", q), ("k", k_codes), ("v", v_codes), ("lengths", lengths)]
+    if append is not None:
+        tensors += list(zip(("k_new", "v_new", "pos"), append))
+    for name, t in tensors:
+        require(t.is_contiguous(), f"{name} must be contiguous")
+    require(all(t.data_ptr() % 16 == 0 for t in (q, k_codes, v_codes)),
+            "q and the K/V caches must start on 16-byte boundaries")
+    out = torch.empty((B, Hq, d), dtype=torch.float32, device=q.device)
+    if B == 0:
+        return out
+    nsx, n_hg = _plan(S, Hq // Hkv)
+    stream = stream_handle(q)
+    part = counters = None
+    if nsx > 1:  # (m, l, acc) of up to HEADS q-heads a split
+        part = torch.empty(B * Hkv * n_hg * nsx * ref.HEADS * (d + 2), dtype=torch.float32,
+                           device=q.device)
+        counters = kernels.zeroed_counters(q.device, stream, B * Hkv * n_hg)
+    k_new, v_new, pos = append if append is not None else (None, None, None)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = _lib().posit_attention_launch(
+        q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), ptr(k_new), ptr(v_new), ptr(pos), ptr(part), ptr(counters),
+        B, Hq, Hkv, S, d, kind, int(es), CHUNK, nsx, n_hg, float(scale), stream)
+    check_rc(rc, "posit_attention")
+    kernels.LAUNCHES["posit_attention"] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_codes: torch.Tensor, v_codes: torch.Tensor,
+                     lengths: torch.Tensor, es: int, *, kv_bits: int,
+                     scale: Optional[float] = None, rolling: bool = False) -> torch.Tensor:
+    """One decode-attention step. q (B, Hq, d) float32; k/v (B, Hkv, S, d);
+    lengths (B,) int32 valid KV length per row. Returns (B, Hq, d)."""
+    _check(q, k_codes, v_codes, lengths)
+    d, S = q.shape[-1], k_codes.shape[2]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if rolling:
@@ -49,23 +111,30 @@ def decode_attention(q: torch.Tensor, k_codes: torch.Tensor, v_codes: torch.Tens
     if on_cpu(q, k_codes, v_codes, lengths):
         return ref.posit_decode_attention_ref(q, k_codes, v_codes, lengths, es,
                                               kv_bits=kv_bits, scale=scale)
-    kind = _KV_KIND.get((kv_bits, k_codes.dtype))
-    require(kind is not None and v_codes.dtype == k_codes.dtype,
-            f"kv_bits={kv_bits} does not take a {k_codes.dtype} cache")
-    require(q.dtype == torch.float32, f"q must be float32, got {q.dtype}")
-    require(lengths.dtype == torch.int32, f"lengths must be int32, got {lengths.dtype}")
-    require(d <= MAX_HEAD_DIM, f"head_dim {d} > {MAX_HEAD_DIM}")
-    require(Hq // Hkv <= MAX_HEADS_PER_KV,
-            f"{Hq // Hkv} q-heads per KV head > {MAX_HEADS_PER_KV}")
-    for name, t in (("q", q), ("k", k_codes), ("v", v_codes), ("lengths", lengths)):
-        require(t.is_contiguous(), f"{name} must be contiguous")
-    out = torch.empty((B, Hq, d), dtype=torch.float32, device=q.device)
-    if B == 0:
-        return out
-    rc = _lib().posit_attention_launch(
-        q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, S, d, kind, int(es), float(scale),
-        stream_handle(q))
-    check_rc(rc, "posit_attention")
-    kernels.LAUNCHES["posit_attention"] += 1
-    return out
+    return _launch(q, k_codes, v_codes, lengths, es, kv_bits, scale)
+
+
+def decode_attention_append(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                            k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                            lengths: torch.Tensor, es: int, *, kv_bits: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The decode step's KV write and attention in one call. k_new/v_new
+    (B, Hkv, d) float32 rows go into the caches (B, Hkv, S, d) at ``pos[b]``,
+    in place: posit-encoded (no ftz) for kv_bits 8/16, cast for a float cache;
+    rows with ``pos[b]`` outside [0, S) are not written. Then each row attends
+    to its first ``lengths[b]`` slots, the new one through its written codes.
+    ``lengths`` already counts the new row. Returns (B, Hq, d)."""
+    _check(q, k_cache, v_cache, lengths)
+    B, Hkv, _, d = k_cache.shape
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        require(tuple(t.shape) == (B, Hkv, d), f"{name} must be ({B}, {Hkv}, {d})")
+    require(tuple(pos.shape) == (B,), f"pos must be ({B},)")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if on_cpu(q, k_new, v_new, k_cache, v_cache, pos, lengths):
+        return ref.decode_attention_append_ref(q, k_new, v_new, k_cache, v_cache, pos,
+                                               lengths, es, kv_bits=kv_bits, scale=scale)
+    require(k_new.dtype == torch.float32 and v_new.dtype == torch.float32,
+            "k_new and v_new must be float32")
+    require(pos.dtype == torch.int32, f"pos must be int32, got {pos.dtype}")
+    return _launch(q, k_cache, v_cache, lengths, es, kv_bits, scale, (k_new, v_new, pos))

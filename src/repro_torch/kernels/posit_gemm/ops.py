@@ -31,7 +31,6 @@ _SIGNATURES = {
 # Tile of the tensor-core kernel (csrc/posit_gemm.cu kTcBN, kTcBK): 128
 # output columns, 64 k rows a pipeline stage; 8 rows for M <= 8, else 64.
 TC_COLS, TC_STEP = 128, 64
-_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
 _ACT = {a: i for i, a in enumerate(ACTIVATIONS)}
 
 
@@ -126,20 +125,6 @@ def fma_split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
     return -(-K // k_per_split), k_per_split
 
 
-def _counters(device: torch.device, stream: int, tiles: int) -> torch.Tensor:
-    """The tensor-core kernel's per-tile counters, one buffer per (device,
-    stream): zeroed once and grown on demand; every kernel leaves them zero
-    again. Kernels on one stream run one after another, so they never share
-    a counter while both run; two GEMMs in flight on different streams get
-    different buffers."""
-    key = (device.index or 0, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = torch.zeros(max(tiles, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[key] = buf
-    return buf
-
-
 def posit_gemm(
     a: torch.Tensor, b: torch.Tensor, es, *, a_fmt: Fmt, b_fmt: Fmt, out_fmt: Fmt,
     bias: Optional[torch.Tensor] = None,
@@ -205,7 +190,8 @@ def posit_gemm(
         grid, k_per_split = plan.grid, 0
         partial = (torch.empty((grid, 2, plan.rows, TC_COLS), dtype=torch.float32,
                                device=a.device) if grid > 1 else None)
-        counters = _counters(a.device, stream, plan.tiles) if grid > 1 else None
+        counters = (kernels.zeroed_counters(a.device, stream, plan.tiles) if grid > 1
+                    else None)
     else:
         grid, k_per_split = fma_split_plan(M, N, kb, sms)
         partial = (torch.empty((grid, M, N), dtype=torch.float32, device=a.device)

@@ -2,9 +2,10 @@
 KV cache) and one decode step over a posit-coded KV cache.
 
 KV-cache transprecision: when ``policy.kv_cache`` is a posit format the cache
-holds uint8/uint16 codes. New K/V rows are encoded on write (the encode
-kernel); decode steps read the codes through the decode-attention kernel,
-which decodes tile by tile. Cache layout ``(B, Hkv, S, hd)``.
+holds uint8/uint16 codes. Prefill encodes its K/V block on write (the encode
+kernel); a decode step hands its new K/V row to the decode-attention kernel,
+which encodes and writes it and attends over the codes, decoding tile by
+tile. Cache layout ``(B, Hkv, S, hd)``.
 
 The port updates the cache in place (the reference returns new arrays).
 """
@@ -104,30 +105,16 @@ def init_kv_cache(B: int, S_max: int, cfg: AttnCfg, policy: TransPolicy, *,
             "len": torch.zeros(lead + (B,), dtype=torch.int32, device=device)}
 
 
-def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos, policy: TransPolicy) -> None:
-    """Write (B, Hkv, s, hd) ``new`` into ``cache_arr`` at sequence offset
-    ``pos``, in place.
-
-    ``pos`` is an int (prefill block write) or a (B,) tensor of per-row write
-    indices with s == 1 (ragged decode). Rows whose index is past the cache
-    (recycled engine slots) are not written, as the reference's dropped
-    scatter does.
-    """
+def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos: int, policy: TransPolicy) -> None:
+    """Write the (B, Hkv, s, hd) block ``new`` into ``cache_arr`` at sequence
+    offset ``pos``, in place (encoded for a posit cache). A decode step's
+    row goes in through ``decode_attention_append`` instead."""
     fmt = policy.kv_cache
     if fmt is not None:
         new = codec_ops.encode(new.to(torch.float32).contiguous(), fmt.es, nbits=fmt.nbits)
     else:
         new = new.to(cache_arr.dtype)
-    if isinstance(pos, int):
-        cache_arr[:, :, pos:pos + new.shape[2]] = new
-        return
-    if cache_arr.dtype == torch.uint16:  # torch indexes uint16 through int16 views
-        cache_arr, new = cache_arr.view(torch.int16), new.view(torch.int16)
-    B, _, S, _ = cache_arr.shape
-    rows = torch.arange(B, device=cache_arr.device)
-    keep = (pos < S)[:, None, None]
-    at = torch.clamp(pos, max=S - 1).long()
-    cache_arr[rows, :, at] = torch.where(keep, new[:, :, 0], cache_arr[rows, :, at])
+    cache_arr[:, :, pos:pos + new.shape[2]] = new
 
 
 def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
@@ -178,12 +165,14 @@ def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: 
                           residual: Optional[torch.Tensor] = None,
                           path: str = "attn") -> tuple:
     """One decode step. x_t: (B, 1, D); pos: (B,) int32 per-row cache write
-    index (= the row's sequence position). Writes the new K/V row in place,
-    counts it in ``cache["len"]`` (clamped to the buffer size) and attends
-    through the decode-attention kernel. ``rope`` is the step's
-    ``rope_tables`` of ``pos`` (shared by every layer; made here when None);
-    ``residual`` fuses into the wo epilogue; ``path`` names the projections
-    for a per-layer policy. Returns (y, cache)."""
+    index (= the row's sequence position; a rolling cache's caller passes it
+    modulo the buffer size). Counts the new K/V row in ``cache["len"]``
+    (clamped to the buffer size, which is all a rolling cache's validity
+    needs), then writes it in place and attends in one call of the
+    decode-attention kernel (``decode_attention_append``). ``rope`` is the
+    step's ``rope_tables`` of ``pos`` (shared by every layer; made here when
+    None); ``residual`` fuses into the wo epilogue; ``path`` names the
+    projections for a per-layer policy. Returns (y, cache)."""
     B = x_t.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     if resolve_attn_impl(policy, cfg, rolling=rolling) != "kernel":
@@ -195,16 +184,17 @@ def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: 
         if rope is None:
             rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
         q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
-    _store(cache["k"], kn.transpose(1, 2), pos, policy)
-    _store(cache["v"], vn.transpose(1, 2), pos, policy)
+    fmt = policy.kv_cache
+    es, kv_bits = (fmt.es, fmt.nbits) if fmt is not None else (0, 0)
     # a slot never holds more than S_cache valid positions (recycled engine
     # slots would otherwise grow `len` between eviction and reuse)
-    cache["len"].copy_(torch.clamp(cache["len"] + 1, max=cache["k"].shape[2]))
-    fmt = policy.kv_cache
-    out = attn_ops.decode_attention(
-        q.reshape(B, H, hd).contiguous(), cache["k"], cache["v"], cache["len"],
-        fmt.es if fmt is not None else 0, kv_bits=fmt.nbits if fmt is not None else 0,
-        rolling=rolling)
+    cache["len"].add_(1).clamp_(max=cache["k"].shape[2])
+    # the row's encode, its cache write and attention in one launch
+    out = attn_ops.decode_attention_append(
+        q.reshape(B, H, hd).to(torch.float32).contiguous(),
+        kn.reshape(B, Hkv, hd).to(torch.float32).contiguous(),
+        vn.reshape(B, Hkv, hd).to(torch.float32).contiguous(), cache["k"], cache["v"],
+        pos, cache["len"], es, kv_bits=kv_bits)
     y = apply_linear(params["wo"], out.reshape(B, 1, H * hd).to(x_t.dtype), policy,
                      residual=residual, path=f"{path}/wo")
     return y, cache

@@ -16,6 +16,7 @@ from repro_torch.core.pcsr import P8_SERVE, OperandSlots, parse_policy
 from repro_torch.core.policy import get_precision_policy
 from repro_torch.core.types import BF16, F32, P8_0, P8_1, P8_2, P8_3, P16_1
 from repro_torch.kernels.posit_attention import ops as attn_ops
+from repro_torch.kernels.posit_attention import ref as attn_ref
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref
 from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.kernels.posit_codec import ref as codec_ref
@@ -246,6 +247,82 @@ def test_attention_kernel_matches_plain(dev, Hq, Hkv, d, kv_bits):
     vmax = float(codec_ref.decode_ref(v, 0, nbits=kv_bits).abs().max())
     assert float((got - want).abs().max()) <= 8 * (d + 200) * U * vmax
     assert bool((got[0] == 0).all())
+
+
+def _attn_case(dev, g_heads, d, kv_bits, S, lengths, seed, Hkv=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    q = torch.randn((B, Hkv * g_heads, d), generator=gen, device=dev)
+    k, v = (torch.randn((B, Hkv, S, d), generator=gen, device=dev) for _ in range(2))
+    if kv_bits:
+        k, v = (codec_ops.encode(t, 1, nbits=kv_bits) for t in (k, v))
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _vmax(v, kv_bits):
+    return float((codec_ref.decode_ref(v, 1, nbits=kv_bits) if kv_bits else v).abs().max())
+
+
+@pytest.mark.parametrize("d", [96, 128, 256])
+@pytest.mark.parametrize("g_heads,kv_bits,S", [(1, 16, 4096), (5, 8, 4096), (7, 0, 1000),
+                                               (16, 8, 600)])
+def test_attention_splits_match_plain(dev, d, g_heads, kv_bits, S):
+    """Splits of 512 positions over ragged rows (0, 1, mid, full), any number
+    of q-heads a KV head, head_dim up to 256, within 4 * (d + 2S) * u * max|V|."""
+    q, k, v, lens = _attn_case(dev, g_heads, d, kv_bits, S, [0, 1, S // 2 + 3, S], seed=d + S)
+    got = attn_ops.decode_attention(q, k, v, lens, 1, kv_bits=kv_bits)
+    want = posit_decode_attention_ref(q, k, v, lens, 1, kv_bits=kv_bits)
+    assert float((got - want).abs().max()) <= 4 * (d + 2 * S) * U * _vmax(v, kv_bits)
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("d,g_heads,kv_bits,S", [(128, 5, 8, 80), (128, 5, 8, 2048),
+                                                 (96, 1, 16, 700), (256, 7, 0, 520)])
+def test_attention_append_writes_and_attends_like_unfused(dev, d, g_heads, kv_bits, S):
+    """The fused call's cache codes are those of encode + the row write (a
+    row at pos >= S untouched), and its output has the bits of the unfused
+    kernel on the written cache."""
+    q, k, v, lens = _attn_case(dev, g_heads, d, kv_bits, S, [3, S, S, 0], seed=S)
+    pos = torch.tensor([2, S, S - 1, 0], dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    kn, vn = (torch.randn((4, 2, d), generator=gen, device=dev) for _ in range(2))
+    k_want, v_want = k.clone(), v.clone()
+    for cache, new in ((k_want, kn), (v_want, vn)):
+        attn_ref.store_row(cache, new, pos, 1, kv_bits=kv_bits)
+    got = attn_ops.decode_attention_append(q, kn, vn, k, v, pos, lens, 1, kv_bits=kv_bits)
+    assert torch.equal(k.view(torch.uint8), k_want.view(torch.uint8))
+    assert torch.equal(v.view(torch.uint8), v_want.view(torch.uint8))
+    unfused = attn_ops.decode_attention(q, k_want, v_want, lens, 1, kv_bits=kv_bits)
+    assert torch.equal(got.view(torch.int32), unfused.view(torch.int32))
+    assert bool((got[3] == 0).all())
+
+
+@pytest.mark.parametrize("kv_bits,S", [(8, 80), (8, 4096), (16, 3000)])
+def test_attention_row_bits_do_not_depend_on_the_batch(dev, kv_bits, S):
+    """A row alone and inside a batch of other rows: the same bits."""
+    q, k, v, lens = _attn_case(dev, 5, 128, kv_bits, S, [S, 7, S // 3, 0], seed=11)
+    batch = attn_ops.decode_attention(q, k, v, lens, 1, kv_bits=kv_bits)
+    for b in range(4):
+        alone = attn_ops.decode_attention(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                                          v[b:b + 1].contiguous(), lens[b:b + 1], 1,
+                                          kv_bits=kv_bits)
+        assert torch.equal(alone[0].view(torch.int32), batch[b].view(torch.int32))
+
+
+@pytest.mark.parametrize("kv_bits,dtype", [(8, torch.uint8), (16, torch.uint16),
+                                            (0, torch.float32), (0, torch.bfloat16)])
+def test_attention_emulation_plans_the_kernels_warps(dev, kv_bits, dtype):
+    """The split order's CPU emulation runs as many warps a block as the
+    kernel, and the launch refuses a split plan that does not cover S."""
+    for d in (32, 96, 128, 160, 256):
+        assert attn_ref.kernel_warps(d, dtype.itemsize, kv_bits) == \
+            attn_ops.kernel_warps(kv_bits, dtype, d)
+    q, k, v, lens = _attn_case(dev, 5, 128, 8, 1030, [1030, 7], seed=3)
+    out = torch.empty_like(q)
+    rc = attn_ops._lib().posit_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(), None, None,
+        None, None, None, 2, 10, 2, 1030, 128, 2, 1, attn_ops.CHUNK, 1, 1, 0.1, None)
+    assert rc != 0
 
 
 def _quire_operands(g, dev, M, K, N, a_fmt, b_fmt):
