@@ -60,7 +60,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
      and a profiled decode step of each served model and of the long
-     context (every step one attention launch a layer, no encode launch
+     context, each from two engines on the same params and requests: the
+     engine as shipped, which replays its decode step from a captured CUDA
+     graph, and its eager twin (``EagerTwin``, the step op by op), whose
+     tokens, every decode step's logits (bit for bit; on P8_SERVE through
+     a mid-flight ``apply_policy`` to f32 compute), launch counts and
+     profiled kernels must agree,
+     with the step's wall time, device time, idle share and decode
+     tokens/s of both on a ``graph_vs_eager`` line a path (every step one
+     attention launch a layer, no encode launch
      but the quire linears' own, one a call, and no index kernel but the
      embedding's: the KV rows are written inside the attention kernel; the
      P8_SERVE step must run no split-K epilogue kernel; the mixed step 192
@@ -85,6 +93,7 @@ compare two checkouts on one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -1060,24 +1069,55 @@ def run_softmax_path() -> tuple[dict, dict]:
     return {"rows": rows}, launches
 
 
-def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 3,
-                   share: bool = False) -> dict:
-    """Where a decode step's time goes: the full model at 4 busy slots, a
-    few steps under torch.profiler (device time by kernel name, and the
-    device-busy share of the window), plus the step time without it, the
-    wrappers' launches a step and the GEMM kernels a step by datapath and B
-    kind. With ``share``, one more step records the share of the quire
-    GEMM's products that took its per-product branch (not timed)."""
-    from torch.profiler import ProfilerActivity, profile
+class EagerTwin(ContinuousBatchingEngine):
+    """The engine with its decode step run eagerly, op by op, on the card:
+    the captured graph's twin in ``profile_decode`` and the card's tests.
+    Only those build it; the shipped engine has no switch to it."""
 
-    model = build_model(arch)
-    params = model.init(0, policy)
-    eng = ContinuousBatchingEngine(model, params, policy, max_slots=4, S_max=prompt_len + 16)
-    for r in poisson_requests(4, arrival_rate=0.0, prompt_lens=(prompt_len,),
-                              max_new_tokens=16, vocab=arch.vocab, seed=1):
+    def _build_executables(self, policy) -> None:
+        model = self.model
+        self._decode = lambda p, t, c: model.decode_step(p, t, c, policy)
+
+
+SWAP_STEP = 2   # the decode step after which a recorded run swaps its policy
+
+
+def served_recorded(eng, reqs, swap=None) -> tuple[dict, list]:
+    """``reqs`` (at most ``eng.max_slots``) admitted together and served to
+    the end, every decode step's logits cloned as the sampler saw them; with
+    ``swap``, ``eng.apply_policy(swap)`` after step ``SWAP_STEP``, the rows
+    live. Returns the token streams and the logits a step."""
+    for r in reqs:
         eng.submit(r)
     eng.admit()
-    eng.step()
+    seen, sample = [], eng._next_token
+    eng._next_token = lambda logits: (seen.append(logits.clone()), sample(logits))[1]
+    try:
+        while eng.active.any():
+            if swap is not None and eng.steps == SWAP_STEP:
+                eng.apply_policy(swap)
+            eng.step()
+    finally:
+        eng._next_token = sample
+    torch.cuda.synchronize()
+    return {c.rid: c.tokens for c in eng.completions}, seen
+
+
+def assert_bit_identical(got: list, want: list, what: str) -> None:
+    assert len(got) == len(want), f"{what}: {len(got)} logit rows against {len(want)}"
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+            f"{what}: the logits of decode step {i + 1} differ"
+
+
+def _step_stats(eng, steps: int, share: bool) -> dict:
+    """``steps`` steps timed, then ``steps`` steps under torch.profiler
+    (device time by kernel name and the device-busy share of the window),
+    the wrappers' launches a step and the GEMM kernels a step by datapath
+    and B kind; with ``share``, one more step records the share of the
+    quire GEMM's products that took its per-product branch (not timed)."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
@@ -1095,8 +1135,7 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - before["posit_quire_gemm"]
     shares = quire_step_share(eng) if share else None
     # kernels only: the aten::* rows repeat their kernels' device time, and a
-    # runtime call's row (cudaLaunchKernel, in the first profile of a
-    # process) its launches
+    # runtime call's row (cudaLaunchKernel, cudaGraphLaunch) its launches
     by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
                       if e.self_device_time_total > 0
                       and not e.key.startswith(("aten::", "cuda"))),
@@ -1117,12 +1156,11 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     index_kernels = sum(c for n, _, c in by_name if "index" in n.lower())
     quire_kernels = sum(c for n, _, c in by_name if "quire" in n)
     quire_readouts = sum(c for n, _, c in by_name if "quire" in n and "readout" in n)
-    del eng, params, model
-    torch.cuda.empty_cache()
     # the profiler slows the host several-fold, so the idle share is the
     # device time per step against the step time measured without it
     busy_per_step_us = busy_us / steps
-    return {"step_ms": step_ms, "profiled_steps": steps, "profiled_window_us": window_us,
+    return {"step_ms": step_ms, "decode_tok_per_s": eng.max_slots / step_ms * 1e3,
+            "profiled_steps": steps, "profiled_window_us": window_us,
             "device_busy_us_per_step": busy_per_step_us,
             "splitk_epilogue_calls_per_step": epilogue_calls / steps,
             "quire_gemm_calls_per_step": quire_calls / steps,
@@ -1137,6 +1175,95 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
             "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
             "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
                      c / steps} for n, us, c in by_name[:14]]}
+
+
+def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 4,
+                   share: bool = False, swap=None) -> dict:
+    """Where a decode step's time goes, with the step captured in a CUDA
+    graph and run eagerly (``EagerTwin``): the full model at 4 busy slots,
+    the same params, requests and seeds for both. Each engine first serves
+    4 requests to the end recording every decode step's logits
+    (``served_recorded``; with ``swap``, a mid-flight ``apply_policy`` after
+    step ``SWAP_STEP`` and back to ``policy`` after the run), is reset, then
+    admits them again, takes a step, is timed and profiled (``_step_stats``;
+    with ``share`` the twin's extra step counts the quire's per-product
+    branch, and the graph engine takes a plain step there) and runs them
+    out. The two must agree: the same tokens in both runs, every recorded
+    logit bit for bit, the same launch counts a step and over the timed run,
+    and within one kernel a step of the same profiled kernels. Returns the
+    graph's numbers, the twin's under "eager" and the comparison under
+    "graph_vs_eager"."""
+    model = build_model(arch)
+    params = model.init(0, policy)
+    runs = {}
+    for name, cls in (("graph", ContinuousBatchingEngine), ("eager", EagerTwin)):
+        kernels.reset_launches()
+        eng = cls(model, params, policy, max_slots=4, S_max=prompt_len + 16)
+        reqs = poisson_requests(4, arrival_rate=0.0, prompt_lens=(prompt_len,),
+                                max_new_tokens=16, vocab=arch.vocab, seed=1)
+        recorded = served_recorded(eng, reqs, swap)
+        if swap is not None:
+            eng.apply_policy(policy)
+        eng.reset()
+        kernels.reset_launches()
+        for r in reqs:
+            eng.submit(r)
+        eng.admit()
+        eng.step()
+        stats = _step_stats(eng, steps, share and name == "eager")
+        if share and name == "graph":
+            eng.step()
+        while eng.active.any():
+            eng.step()
+        torch.cuda.synchronize()
+        # (kernel_timings.py runs this on older packages, whose engine has no _decode)
+        stats["captured"] = type(getattr(eng, "_decode", None)).__name__ == "CapturedStep"
+        stats["run_launches"] = dict(kernels.LAUNCHES)
+        runs[name] = (stats, recorded, {c.rid: c.tokens for c in eng.completions})
+        del eng
+        torch.cuda.empty_cache()
+    (graph, (g_rec, g_seen), g_tokens), (eager, (e_rec, e_seen), e_tokens) = \
+        runs["graph"], runs["eager"]
+    assert g_tokens == e_tokens and g_rec == e_rec, \
+        f"{arch.name}: graph and eager token streams differ"
+    if swap is None:
+        assert g_tokens == g_rec, f"{arch.name}: the run after a reset served other tokens"
+    assert_bit_identical(g_seen, e_seen, f"{arch.name}: graph against eager")
+    assert graph["run_launches"] == eager["run_launches"], (graph["run_launches"],
+                                                           eager["run_launches"])
+    assert graph["launches_per_step"] == eager["launches_per_step"]
+    # the profiler reports the kernels inside a graph launch by name (a
+    # window's edges may split a step: a fraction of a kernel a step)
+    assert abs(graph["launches_all_kernels_per_step"]
+               - eager["launches_all_kernels_per_step"]) <= 1, \
+        (f"{arch.name}: the profiler saw {graph['launches_all_kernels_per_step']} kernels a "
+         f"graph step, {eager['launches_all_kernels_per_step']} an eager one")
+    out = dict(graph, quire_per_product_share=eager["quire_per_product_share"], eager=eager)
+    out["graph_vs_eager"] = {
+        "decode_steps_compared": len(g_seen),
+        "tokens_compared": sum(map(len, g_tokens.values())) + sum(map(len, g_rec.values())),
+        "swap": None if swap is None else {
+            "after_step": SWAP_STEP,
+            "changed": {k: v for k, v in swap.to_json().items() if v != policy.to_json()[k]}},
+        "bit_identical": True, "launches_equal": True,
+        "wall_speedup": eager["step_ms"] / graph["step_ms"]}
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_line(path: str, prof: dict) -> dict:
+    """The graph-against-eager figures of a profiled path, for its log line."""
+    keys = ("step_ms", "device_busy_us_per_step", "device_idle_share", "decode_tok_per_s",
+            "launches_all_kernels_per_step")
+    return {"path": path, "captured": prof["captured"],
+            "graph": {k: prof[k] for k in keys}, "eager": {k: prof["eager"][k] for k in keys},
+            **prof["graph_vs_eager"]}
+
+
+def profile_log(prof: dict) -> dict:
+    """A profile's log line: everything but the kernel tables and the twin."""
+    return {k: v for k, v in prof.items() if k not in ("top", "eager")}
 
 
 def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0) -> None:
@@ -1585,18 +1712,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     sm_res, sm_launches = run_softmax_path()
     log("softmax_path", launches=sm_launches, **sm_res)
-    prof = profile_decode()
-    log("profile", **{k: v for k, v in prof.items() if k != "top"})
+    # P8_SERVE swaps to f32 compute over its live rows in the recorded run
+    prof = profile_decode(swap=dataclasses.replace(P8_SERVE, compute_dtype="f32"))
+    log("profile", **profile_log(prof))
     assert prof["splitk_epilogue_calls_per_step"] == 0, \
         "the P8_SERVE decode step still launches a split-K epilogue kernel"
     assert_kv_write_fused(prof, QWEN, "P8_SERVE")
     DETAILS["decode_profile"] = prof
     l_prof = profile_decode(prompt_len=LONG_PROMPT)
-    log("profile_long", **{k: v for k, v in l_prof.items() if k != "top"})
+    log("profile_long", **profile_log(l_prof))
     assert_kv_write_fused(l_prof, QWEN, "long-context")
     DETAILS["long_decode_profile"] = l_prof
     m_prof = profile_decode(QWEN, mixed_policy)
-    log("profile_mixed", **{k: v for k, v in m_prof.items() if k != "top"})
+    log("profile_mixed", **profile_log(m_prof))
     # q/k/v/o of 48 layers at p16 on the tensor cores, no f32-FMA kernel and
     # no split-K epilogue; gate/up/down of 48 layers and lm_head on the packed
     # tensor-core variant
@@ -1614,7 +1742,7 @@ def main() -> int:
     assert_kv_write_fused(m_prof, QWEN, "mixed")
     DETAILS["mixed_decode_profile"] = m_prof
     q_prof = profile_decode(PHI3, parse_policy(QUIRE_SPEC), prompt_len=32, share=True)
-    log("profile_quire", **{k: v for k, v in q_prof.items() if k != "top"})
+    log("profile_quire", **profile_log(q_prof))
     assert q_prof["quire_readout_kernels_per_step"] == 0, \
         "the quire decode step still launches a readout kernel"
     assert q_prof["quire_gemm_calls_per_step"] > 0 and \
@@ -1624,6 +1752,12 @@ def main() -> int:
     # write adds none
     assert_kv_write_fused(q_prof, PHI3, "quire", q_prof["quire_gemm_calls_per_step"])
     DETAILS["quire_decode_profile"] = q_prof
+    # every profiled path's decode step is one captured graph, bit for bit its
+    # eager twin (asserted in profile_decode)
+    for path, p in (("p8_serve", prof), ("long", l_prof), ("mixed", m_prof),
+                    ("quire", q_prof)):
+        log("graph_vs_eager", **graph_line(path, p))
+        assert p["captured"], f"the {path} engine did not capture its decode step"
 
     errs = {"posit_encode": codec_res["encode_max_abs_err"],
             "posit_decode": codec_res["decode_max_abs_err"],

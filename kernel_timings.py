@@ -29,9 +29,11 @@ heads with p16 KV at 4,096, each read cold, beside its byte bound and
 scaled_dot_product_attention on the decoded f32 cache.
 With --profiles it also profiles one decode step of qwen2.5-14b under
 P8_SERVE and under attn-p16-mlp-p8 over p8-serve, and of phi3-mini-3.8b
-under the quire (chip_smoke.py ``profile_decode``: device time, device
-kernels and the wrappers' launches a step), so a step's before and after
-come from one card.
+under the quire (chip_smoke.py ``profile_decode``: wall time, device time,
+device kernels and the wrappers' launches a step), replayed from the
+engine's captured CUDA graph and run eagerly (under "eager"), so a step's
+before and after come from one card. A package whose engine captures no
+graph runs both eagerly ("captured": false).
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -83,14 +85,17 @@ def main() -> int:
     if "--profiles" in sys.argv:
         from repro_torch.core.policy import get_precision_policy
 
-        keep = ("step_ms", "device_busy_us_per_step", "device_idle_share",
-                "launches_per_step", "launches_all_kernels_per_step", "top")
+        keep = ("step_ms", "decode_tok_per_s", "device_busy_us_per_step",
+                "device_idle_share", "launches_per_step", "launches_all_kernels_per_step",
+                "top", "captured", "graph_vs_eager")
         for name, args in (("p8_serve", (smoke.QWEN, smoke.P8_SERVE)),
                            ("mixed", (smoke.QWEN, get_precision_policy(
                                smoke.MIXED, base=smoke.P8_SERVE))),
                            ("quire", (smoke.PHI3, smoke.parse_policy(smoke.QUIRE_SPEC)))):
             prof = smoke.profile_decode(*args, prompt_len=64 if name != "quire" else 32)
             res[f"profile_{name}"] = {k: v for k, v in prof.items() if k in keep}
+            res[f"profile_{name}"]["eager"] = {k: v for k, v in prof["eager"].items()
+                                               if k in keep}
     print(json.dumps({"timings": res}))
     return 0
 

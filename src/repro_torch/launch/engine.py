@@ -9,6 +9,14 @@ by its own length, and leave on EOS or max length, freeing the slot.
 Greedy decoding is ``temperature=0``; otherwise temperature / top-k sampling
 from a ``torch.Generator`` seeded per engine. The reference's observability,
 fault-tolerance, snapshot and streaming planes are not ported.
+
+The decode step is one executable, as the reference's jit of it is: on a
+CUDA model ``_build_executables`` captures one step of the fixed slot grid
+in a CUDA graph and every ``step`` replays it. The graph reads and writes
+the engine's persistent buffers (the token row, the cache and its lengths),
+so nothing rebinds them: admission, slot writes and ``reset`` copy into
+them in place. On a CPU model the step runs eagerly, the plain versions.
+Prefill stays eager.
 """
 from __future__ import annotations
 
@@ -18,6 +26,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import kernels
 
 
 @dataclasses.dataclass
@@ -91,6 +101,68 @@ def _write_slot(full, one, slot: int) -> None:
     full.narrow(axes[0], slot, 1).copy_(one)
 
 
+def _copy_into(full, one) -> None:
+    """Copy every leaf of ``one`` into the same-shaped leaf of ``full``."""
+    if isinstance(full, dict):
+        for k in full:
+            _copy_into(full[k], one[k])
+        return
+    full.copy_(one)
+
+
+def _zero(tree) -> None:
+    """Zero every leaf in place (code 0 is exact 0.0 in every posit format)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _zero(v)
+        return
+    tree.zero_()
+
+
+class CapturedStep:
+    """``fn(*args)`` captured once in a CUDA graph and replayed over the
+    same tensors: the counterpart of the reference's jit of the decode step
+    with the cache donated.
+
+    A warm-up call on the capture stream builds the kernels and sizes every
+    scratch and counter buffer there, with any host synchronisation an
+    error (a step that waits on the card cannot be captured); the tensors of
+    ``restore`` (the state the step advances) are then put back, and one
+    call is captured. A call replays the graph on the current stream and
+    returns the captured call's own outputs (the logits tensor is
+    overwritten by the next replay). Each replay adds the captured launches
+    to ``kernels.LAUNCHES`` once; neither the warm-up nor the capture
+    counts. A failed capture raises: there is no eager fallback."""
+
+    def __init__(self, fn: Callable, args: tuple, restore: tuple, stream):
+        saved = [t.clone() for t in restore]
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with kernels.CapturedLaunches(), torch.cuda.stream(stream):
+                fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        current.wait_stream(stream)
+        for t, s in zip(restore, saved):
+            t.copy_(s)
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = kernels.CapturedLaunches()
+        with self.launches, torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn(*args)
+        self.args = args
+
+    def __call__(self, *args):
+        if len(args) != len(self.args) or any(a is not b for a, b in zip(args, self.args)):
+            raise ValueError("a captured step replays only over the tensors it was "
+                             "captured with")
+        self.graph.replay()
+        self.launches.replayed()
+        return self.out
+
+
 def _sample(logits: torch.Tensor, gen: torch.Generator, temperature: float,
             top_k: int) -> torch.Tensor:
     """(B, V) logits -> (B,) tokens. temperature == 0 is greedy argmax."""
@@ -120,16 +192,74 @@ class ContinuousBatchingEngine:
         self.device = model.device
         self.max_slots, self.S_max = max_slots, S_max
         self.eos_id, self.temperature, self.top_k = eos_id, temperature, top_k
-        self.reset(seed)
+        self.cache = None
+        self._stream = None
+        self._init_state(seed)
+        self._build_executables(policy)
 
-    def reset(self, seed: int = 0) -> None:
-        """Clear all serving state (cache, slots, queue, completions)."""
+    def _build_executables(self, policy) -> None:
+        """(Re)build the decode program for ``policy``.
+
+        Called at init and by :meth:`apply_policy`. On a CUDA model one
+        decode step over the persistent token row and cache is captured in a
+        CUDA graph (``CapturedStep``) and ``self._decode`` replays it; the
+        old graph and its memory pool are dropped first. On a CPU model
+        ``self._decode`` is the model's decode step, run eagerly. Sampling,
+        the nonfinite check and the step's one device-to-host copy stay
+        outside, as they stay outside the reference's jit.
+        """
+        model = self.model
+        self._decode = None
+
+        def decode(p, t, c):
+            return model.decode_step(p, t, c, policy)
+
+        if self.device.type != "cuda":
+            self._decode = decode
+            return
+        if self._stream is None:
+            # one capture stream an engine: its kernel counters keep their size
+            self._stream = torch.cuda.Stream(self.device)
+        c = self.cache
+        self._decode = CapturedStep(decode, (self.params, self.last_token, c),
+                                    (c["lens"], c["pos"], c["kv"]["len"]), self._stream)
+
+    def apply_policy(self, policy) -> None:
+        """Swap the serving policy mid-flight (degradation ladder step).
+
+        Only weight-format overlays are legal: the KV-cache format must be
+        unchanged, or the live cache's code arrays would be reinterpreted
+        under the wrong codec.
+        """
+        old_kv = getattr(self.policy, "kv_cache", None)
+        new_kv = getattr(policy, "kv_cache", None)
+        if (old_kv is None) != (new_kv is None) or \
+                (old_kv is not None and old_kv.name != new_kv.name):
+            raise ValueError(
+                f"apply_policy may not change the KV-cache format "
+                f"({old_kv} -> {new_kv}); only weight overlays are hot-"
+                f"swappable")
+        self.policy = policy
+        self._build_executables(policy)
+
+    def _init_cache(self) -> dict:
+        """Device-cache construction hook (the slot grid's stacked cache)."""
+        return self.model.init_cache(self.max_slots, self.S_max, self.policy)
+
+    def _init_state(self, seed: int) -> None:
+        """Fresh serving state. The cache and the token row are made once
+        and zeroed in place after that: the captured decode step holds their
+        addresses."""
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-        self.cache = self.model.init_cache(self.max_slots, self.S_max, self.policy)
+        if self.cache is None:
+            self.cache = self._init_cache()
+            self.last_token = torch.zeros((self.max_slots,), dtype=torch.int32,
+                                          device=self.device)
+        else:
+            _zero(self.cache)
+            self.last_token.zero_()
         self.lens = np.zeros((self.max_slots,), np.int32)
-        self.last_token = torch.zeros((self.max_slots,), dtype=torch.int32,
-                                      device=self.device)
         self.active = np.zeros((self.max_slots,), bool)
         self.slot_req: list = [None] * self.max_slots
         self.slot_tokens: list = [[] for _ in range(self.max_slots)]
@@ -139,6 +269,11 @@ class ContinuousBatchingEngine:
         self.completions: list = []
         self.steps = 0
         self.nonfinite_rows = 0   # active rows whose logits held NaN/inf
+
+    def reset(self, seed: int = 0) -> None:
+        """Clear all serving state but keep the compiled decode program
+        (the captured graph and the buffers it reads)."""
+        self._init_state(seed)
 
     # ---------------------------------------------------------- client API ----
     def submit(self, req: Request) -> int:
@@ -163,7 +298,8 @@ class ContinuousBatchingEngine:
         logits, one = self.model.prefill(self.params, tokens, self.policy, S_max=self.S_max)
         row_len = int(one["lens"][0])
         if self.max_slots == 1:
-            self.cache = one
+            # every leaf has the B=1 cache's shape: the row is the whole cache
+            _copy_into(self.cache, one)
         else:
             _write_slot(self.cache, one, slot)
         return logits, row_len
@@ -201,23 +337,21 @@ class ContinuousBatchingEngine:
 
     def _sync_lens(self) -> None:
         """The engine's slot lengths are authoritative: push them into the
-        cache's per-row positions (recycled slots restart)."""
-        self.cache["lens"] = torch.as_tensor(self.lens.copy(), dtype=torch.int32,
-                                             device=self.device)
+        cache's per-row positions (recycled slots restart), in place."""
+        self.cache["lens"].copy_(torch.from_numpy(self.lens))
 
     # --------------------------------------------------------------- decode ---
     def step(self, now: float = 0.0) -> int:
         """One decode step over the whole slot grid; returns #tokens emitted."""
         if not self.active.any():
             return 0
-        logits, self.cache = self.model.decode_step(self.params, self.last_token,
-                                                    self.cache, self.policy)
+        logits, self.cache = self._decode(self.params, self.last_token, self.cache)
         self.steps += 1
         toks = self._next_token(logits).to(torch.int32)
         bad = (~torch.isfinite(logits)).any(dim=-1)
         toks_np, bad_np = torch.stack([toks, bad.to(torch.int32)]).cpu().numpy()
         self.lens += 1          # decode_step advanced every row
-        self.last_token = toks
+        self.last_token.copy_(toks)
         emitted = 0
         for slot in range(self.max_slots):
             if not self.active[slot]:

@@ -91,7 +91,9 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
     """One token for the whole batch. token_t: (B,) int -> logits (B, V).
 
     Every row writes at its own position ``cache["lens"]`` and masks by its
-    layer's ``len``. The cache is updated in place and returned.
+    layer's ``len``. The cache is updated in place and returned: every
+    tensor of it, ``lens`` and ``pos`` included, stays the same tensor, so a
+    CUDA graph of the step reads and writes the same buffers at each replay.
     """
     _require_dense(cfg)
     check_ported(policy)
@@ -109,7 +111,7 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
     h = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_fn(params, h, cfg, policy)[:, 0]
     cache["pos"] += 1
-    cache["lens"] = lens + 1
+    lens.add_(1)          # in place, after its last use in the step
     return logits, cache
 
 

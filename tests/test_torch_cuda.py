@@ -6,9 +6,12 @@ PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 import torch
 
+from chip_smoke import EagerTwin, assert_bit_identical, served_recorded
 from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.core.pack import pack_p8, unpack_p8
@@ -26,7 +29,8 @@ from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm, quire_gem
 from repro_torch.kernels.posit_quire_gemm.ref import posit_quire_gemm_ref
 from repro_torch.kernels.posit_softmax.ops import softmax
 from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref
-from repro_torch.launch.engine import ContinuousBatchingEngine, poisson_requests
+from repro_torch.launch.engine import (CapturedStep, ContinuousBatchingEngine, Request,
+                                       poisson_requests)
 from repro_torch.models.registry import build_model
 
 pytestmark = pytest.mark.cuda
@@ -499,3 +503,123 @@ def test_reduced_mixed_precision_engine_on_card(dev, base):
     p16, idle = ("posit_gemm_p16", "posit_gemm") if bf16 else ("posit_gemm", "posit_gemm_p16")
     assert kernels.LAUNCHES[packed] > 0 and kernels.LAUNCHES[p16] > 0
     assert kernels.LAUNCHES[idle] == 0
+
+
+def _serve_recorded(eng, prompts):
+    """Staggered admission; every sampled row of logits (prefill and decode)
+    cloned as the sampler saw it, the tokens and the launches of the run."""
+    seen = []
+    sample = eng._next_token
+    eng._next_token = lambda logits: (seen.append(logits.clone()), sample(logits))[1]
+    kernels.reset_launches()
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=n) for i, (p, n) in enumerate(prompts)]
+    eng.submit(reqs[0])
+    eng.admit()
+    eng.step()
+    for r in reqs[1:]:
+        eng.submit(r)
+    while eng.queue or eng.active.any():
+        eng.admit()
+        eng.step()
+    torch.cuda.synchronize()
+    eng._next_token = sample
+    return {c.rid: c.tokens for c in eng.completions}, seen, dict(kernels.LAUNCHES)
+
+
+GRAPH_POLICIES = {
+    "p8-serve": ("qwen2.5-14b", lambda: P8_SERVE),
+    "mixed": ("qwen2.5-14b", lambda: get_precision_policy("attn-p16-mlp-p8", base=P8_SERVE)),
+    "quire": ("phi3-mini-3.8b", lambda: parse_policy("weights=p16_1,kv=p16_1,dataflow=quire")),
+}
+
+
+@pytest.mark.parametrize("name", list(GRAPH_POLICIES))
+def test_graph_engine_matches_its_eager_twin_bit_for_bit(dev, name):
+    """The captured decode step replays the eager step's kernels: the same
+    tokens, every sampled logit bit for bit, the same launch counts; the
+    buffers the graph reads keep their addresses through a reset."""
+    arch, make = GRAPH_POLICIES[name]
+    cfg, pol = get_arch(arch).reduced(), make()
+    model = build_model(cfg)
+    params = model.init(0, pol)
+    g = torch.Generator().manual_seed(0)
+    prompts = [(torch.randint(0, cfg.vocab, (n,), generator=g).numpy().astype("int32"), m)
+               for n, m in ((8, 6), (12, 5), (5, 7), (10, 4), (6, 6))]
+    graph = ContinuousBatchingEngine(model, params, pol, max_slots=4, S_max=24)
+    assert isinstance(graph._decode, CapturedStep)
+    decode, ptrs = graph._decode, [t.data_ptr() for t in (graph.cache["lens"],
+                                                          graph.cache["kv"]["k"],
+                                                          graph.last_token)]
+    want = _serve_recorded(EagerTwin(model, params, pol, max_slots=4, S_max=24), prompts)
+    for _ in range(2):      # a fresh graph engine, then the same one after a reset
+        got = _serve_recorded(graph, prompts)
+        assert got[0] == want[0] and got[2] == want[2]
+        assert len(got[1]) == len(want[1])
+        for a, b in zip(got[1], want[1]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        graph.reset()
+        assert graph._decode is decode
+        assert [t.data_ptr() for t in (graph.cache["lens"], graph.cache["kv"]["k"],
+                                       graph.last_token)] == ptrs
+
+
+def test_graph_engine_apply_policy_recaptures(dev):
+    """A legal swap (fused -> chained epilogue, the same p8 params) captures
+    a new graph, which serves what a fresh engine under that policy serves;
+    a KV-format change raises and keeps the old graph."""
+    cfg = get_arch("qwen2.5-14b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    chained = dataclasses.replace(P8_SERVE, epilogue="chained")
+    reqs = poisson_requests(3, arrival_rate=0.0, prompt_lens=(8,), max_new_tokens=5,
+                            vocab=cfg.vocab)
+    eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=2, S_max=20)
+    old = eng._decode
+    with pytest.raises(ValueError, match="KV-cache format"):
+        eng.apply_policy(parse_policy("weights=p8_0,kv=p16_1,compute=bf16"))
+    assert eng._decode is old
+    eng.apply_policy(chained)
+    assert isinstance(eng._decode, CapturedStep) and eng._decode is not old
+    want = ContinuousBatchingEngine(model, params, chained, max_slots=2, S_max=20).run(reqs)
+    got = eng.run(reqs)
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+
+
+def test_graph_engine_single_slot_matches_its_eager_twin(dev):
+    """One slot: admission copies the whole B=1 prefill cache into the
+    buffers the graph reads."""
+    cfg = get_arch("qwen2.5-14b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    reqs = poisson_requests(3, arrival_rate=0.0, prompt_lens=(7, 11), max_new_tokens=6,
+                            vocab=cfg.vocab)
+    want = EagerTwin(model, params, P8_SERVE, max_slots=1, S_max=20).run(reqs)
+    eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=1, S_max=20)
+    assert isinstance(eng._decode, CapturedStep)
+    assert [c.tokens for c in eng.run(reqs)] == [c.tokens for c in want]
+
+
+
+@pytest.mark.parametrize("swap", [dict(epilogue="chained"), dict(compute_dtype="f32")],
+                         ids=["chained", "f32-compute"])
+def test_graph_engine_apply_policy_mid_flight_matches_its_eager_twin(dev, swap):
+    """A swap over live rows: 4 requests admitted, 2 steps, ``apply_policy``
+    (the new graph's warm-up writes into the live cache and puts back what
+    the step advances), then run to the end; the tokens and every decode
+    step's logits bit for bit those of an eager twin that makes the same
+    swap at the same step."""
+    cfg = get_arch("qwen2.5-14b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    new = dataclasses.replace(P8_SERVE, **swap)
+    reqs = poisson_requests(4, arrival_rate=0.0, prompt_lens=(8, 13, 5, 11),
+                            max_new_tokens=9, vocab=cfg.vocab, seed=3)
+    eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=4, S_max=24)
+    old = eng._decode
+    got = served_recorded(eng, reqs, swap=new)
+    want = served_recorded(EagerTwin(model, params, P8_SERVE, max_slots=4, S_max=24), reqs,
+                           swap=new)
+    assert isinstance(eng._decode, CapturedStep) and eng._decode is not old
+    assert eng.policy is new and got[0] == want[0]
+    assert len(got[1]) == eng.steps == 8
+    assert_bit_identical(got[1], want[1], "graph against eager")
