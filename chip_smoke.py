@@ -33,7 +33,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      f32 contract's limit and a tight one that two bf16 controls must fail,
      the cache codes bit for bit those of the encode kernel and the row
      write, the output bit for bit the unfused call's, each row's bits alone
-     and in the batch, the CPU emulation's warps a block the kernel's; the
+     and in the batch, the CPU emulation's warps a block the kernel's; its
+     paged mode (the block table read inside the kernel) at qwen's heads,
+     p8 and p16, bt 1, 16 and 32, over shuffled pools with sentinel tails
+     and NaR-filled recycled pages, lengths 0, 1, 300 and 4,096, and at the
+     paged path's 4-slot shape (W 66 pages of 16): bit for bit
+     the dense kernel on the de-paged cache, within both limits of the plain
+     version, its paged append's codes bit for bit the encode kernel + the
+     paged row write (``check_paged_attention``); the
      softmax kernel against its plain version (within 1 posit ulp), up to
      qwen's vocabulary, with a NaR row;
   5. the reduced qwen2.5-14b (P8_SERVE, and the per-layer presets
@@ -59,8 +66,18 @@ Phases, in order; any failure raises and the script exits non-zero:
        4,096;
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
-     and a profiled decode step of each served model and of the long
-     context, each from two engines on the same params and requests: the
+     - the paged path: qwen2.5-14b at full width and depth, P8_SERVE, 16
+       requests of 1,024 prompt tokens at 90% overlap (922 shared tokens)
+       and 32 generated, S_max 1,056, pages of 32,768 B (16 tokens), served
+       by the slot grid and the paged engine at 4 slots (the pool the
+       grid's bytes, 264 blocks) and at 16 slots (the same 264 blocks):
+       paged and grid bit for bit at both, 15 prefix hits of 912 tokens,
+       all 16 admitted at once at 16 slots, a fork's two streams equal
+       through copy-on-write, no dense attention launch (``run_paged_path``);
+       then ``serve(paged=True, page_bytes=32768)`` through the entry point;
+     and a profiled decode step of each served model, of the long context
+     and of the paged engine (48 paged attention launches a step), each
+     from two engines on the same params and requests: the
      engine as shipped, which replays its decode step from a captured CUDA
      graph, and its eager twin (``EagerTwin``, the step op by op), whose
      tokens, every decode step's logits (bit for bit; on P8_SERVE through
@@ -82,8 +99,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      variants there beside the unpacked kernel, the p16 weights (tensor
      cores under bf16 compute, f32 FMA under f32) at the attention
      projections' decode and prefill shapes, the quire GEMM at every phi3
-     decode (M = 4, lm_head included) and prefill (M = 32) shape, and decode
-     attention read cold at S = 80 to 32,768 (``attention_timings``).
+     decode (M = 4, lm_head included) and prefill (M = 32) shape, decode
+     attention read cold at S = 80 to 32,768 (``attention_timings``), and
+     the paged kernel read cold at the paged path's 16-slot step (and there
+     held to its plain version within phase 4's limits) and at S = 4,096
+     with bt 16 and 1 beside the dense kernel on the same codes
+     (``paged_attention_timings``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
@@ -102,6 +123,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -126,7 +148,8 @@ from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm  # noqa: E
 from repro_torch.kernels.posit_quire_gemm.ref import posit_quire_gemm_ref  # noqa: E402
 from repro_torch.kernels.posit_softmax import ops as softmax_ops  # noqa: E402
 from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref  # noqa: E402
-from repro_torch.launch.engine import ContinuousBatchingEngine, poisson_requests  # noqa: E402
+from repro_torch.launch.engine import (ContinuousBatchingEngine, Request,  # noqa: E402
+                                       poisson_requests)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 
@@ -164,6 +187,19 @@ def bound_ms(nbytes: float, flops: float = 0.0, kind: str = "bf16") -> tuple[flo
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+# rows of the profiler's own work (CUPTI asking for a trace buffer), which
+# carry device time and are no kernel of the program's
+PROFILER_ROWS = ("Activity Buffer Request",)
+
+
+def device_rows(prof) -> list:
+    """The kernels and copies of a profile's ``key_averages()``: the rows with
+    device time but the aten::* ops (their kernels' time again), the runtime
+    calls (cudaLaunchKernel, cudaGraphLaunch) and the profiler's own rows."""
+    return [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and not e.key.startswith(("aten::", "cuda")) and e.key not in PROFILER_ROWS]
+
+
 def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed by
     torch.profiler over ``calls`` back-to-back calls, median over
@@ -184,8 +220,7 @@ def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if not e.key.startswith("aten::"))
+        us = sum(e.self_device_time_total for e in device_rows(prof))
         if us > 0:
             per_call.append(us / calls / 1e3)
             if len(per_call) == windows:
@@ -854,6 +889,147 @@ def check_attention() -> dict:
             "append_bit_exact": appended, "batch_invariant": appended}
 
 
+def nar_full(shape, dtype) -> torch.Tensor:
+    """A code array of ``shape`` (uint8 or uint16) holding NaR everywhere."""
+    if dtype == torch.uint16:
+        return torch.full(shape, -32768, dtype=torch.int16, device=DEV).view(torch.uint16)
+    return torch.full(shape, 0x80, dtype=torch.uint8, device=DEV)
+
+
+def code_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def page_cache(k, v, lengths, bt: int, *, seed: int, extra: int = 8):
+    """Dense K/V codes (B, Hkv, S, d) as pools (N, Hkv, bt, d) and a block
+    table (B, W), W * bt = S, as a paged engine leaves them: row b's first
+    ceil(len / bt) pages at shuffled, non-contiguous block ids, the rest of
+    its entries sentinels (N, and N + 7 on odd rows: any id >= N is empty);
+    every pool row starts as NaR, as a recycled page may hold, so the rows
+    past each length in a row's last page and the ``extra`` unused blocks
+    are NaR."""
+    B, Hkv, S, d = k.shape
+    W = S // bt
+    N = B * W + extra
+    ids = torch.randperm(N, generator=torch.Generator().manual_seed(seed))[:B * W]
+    table = ids.reshape(B, W).to(torch.int32)
+    pools = []
+    for t in (k, v):
+        t = t.clone()
+        pool = nar_full((N, Hkv, bt, d), t.dtype)
+        for b, n in enumerate(lengths):
+            code_bits(t)[b, :, n:] = code_bits(nar_full((1,), t.dtype))
+        pages = t.reshape(B, Hkv, W, bt, d).permute(0, 2, 1, 3, 4)
+        for b, n in enumerate(lengths):
+            used = -(-n // bt)
+            code_bits(pool)[table[b, :used].long().to(DEV)] = \
+                code_bits(pages[b, :used].contiguous())
+        pools.append(pool)
+    for b, n in enumerate(lengths):
+        table[b, -(-n // bt):] = N + 7 * (b % 2)
+    return pools[0], pools[1], table.to(DEV)
+
+
+def live_codes(codes: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """Dense codes with every position at or past its row's length set to
+    code 0: the plain version's output is the same (those positions are
+    masked), and max|V| is over live values, not stale NaR."""
+    S = codes.shape[2]
+    keep = (torch.arange(S, device=DEV)[None] < lens[:, None])[:, None, :, None]
+    return torch.where(keep, code_bits(codes), torch.zeros((), dtype=code_bits(codes).dtype,
+                                                          device=DEV)).view(codes.dtype)
+
+
+# the paged path's requests, pages and S_max (run_paged_path)
+PAGED_REQUESTS, PAGED_PROMPT, PAGED_GEN, PAGED_OVERLAP = 16, 1024, 32, 0.9
+PAGED_PAGE_BYTES = 32768
+PAGED_S_MAX = PAGED_PROMPT + PAGED_GEN
+
+# (kv_bits, bt, S = W * bt, lengths) of phase 4's paged cases, at qwen2.5-14b's
+# heads: S = 4,096 at bt 1, 16 and 32; and the paged path's own 4-slot shape,
+# W 66 pages of 16 (S_max 1,056), lengths about its decode steps'
+PAGED_LENGTHS = (0, 1, 300, 4096)
+PAGED_CHECKS = tuple((kv_bits, bt, 4096, PAGED_LENGTHS) for kv_bits in (8, 16)
+                     for bt in (1, 16, 32)) + \
+    ((8, 16, PAGED_S_MAX, (0, PAGED_PROMPT, PAGED_PROMPT + 17, PAGED_S_MAX)),)
+
+
+def check_paged_attention() -> dict:
+    """The paged mode of the attention kernel at qwen2.5-14b's heads, p8 and
+    p16, bt 1, 16 and 32, lengths 0, 1, 300 and 4,096, and at the paged
+    path's 4-slot shape (W 66, bt 16; PAGED_CHECKS), over
+    ``page_cache``'s shuffled pools with sentinel tails and NaR-filled
+    recycled pages: the output bit for bit the dense kernel's on the
+    de-paged cache (``ref.depage``), within the contract's limit and the
+    tight one of the plain version (``attention_case_errors``, on the live
+    codes, and the paged plain version itself within the tight limit), a
+    length-0 row exact zeros. The paged append (bt 16, p8 and p16): the
+    pools' codes bit for bit those of the encode kernel + the paged row
+    write (``ref.store_row_paged``), a write past W * bt and one through a
+    sentinel entry dropped, its output bit for bit the unfused paged call's
+    and the dense kernel's on the de-paged written cache."""
+    rows = []
+    for kv_bits, bt, S, lengths in PAGED_CHECKS:
+        name = f"paged p{kv_bits} bt{bt} S{S}"
+        q, k, v, lens = attn_inputs(kv_bits, S=S, lengths=lengths, seed=S + bt + kv_bits)
+        kp, vp, table = page_cache(k, v, lengths, bt, seed=bt + kv_bits)
+        del k, v
+        got = attn_ops.decode_attention_paged(q, kp, vp, table, lens, 0, kv_bits=kv_bits)
+        kd, vd = attn_ref.depage(kp, table), attn_ref.depage(vp, table)
+        dense = attn_ops.decode_attention(q, kd, vd, lens, 0, kv_bits=kv_bits)
+        assert torch.equal(bits(got), bits(dense)), \
+            f"attention {name}: output differs from the dense kernel on the de-paged cache"
+        assert bool((got[0] == 0).all()), f"attention {name}: a length-0 row must be zeros"
+        row = attention_case_errors(name, got, q, live_codes(kd, lens), live_codes(vd, lens),
+                                    lens, 0, kv_bits, QWEN.hd, S)
+        plain = attn_ref.posit_decode_attention_paged_ref(q, kp, vp, table, lens, 0,
+                                                          kv_bits=kv_bits)
+        row["paged_plain_err"] = float((got - plain).abs().max())
+        assert row["paged_plain_err"] <= row["tight_limit"], f"attention {name}: {row}"
+        rows.append(row)
+        del q, kp, vp, kd, vd, got, dense, plain
+    appended = []
+    bt, S = 16, PAGED_LENGTHS[-1]
+    lengths = (3, S, 301, 0)
+    for kv_bits in (8, 16):
+        q, k, v, lens = attn_inputs(kv_bits, S=S, lengths=lengths, seed=S + 100 + kv_bits)
+        kp, vp, table = page_cache(k, v, lengths, bt, seed=100 + kv_bits)
+        table[3] = kp.shape[0]   # row 3: an inactive slot, every entry empty
+        # row 0 rewrites a live position, row 1 writes past W * bt, row 2 at
+        # its length, row 3 through a sentinel entry
+        pos = torch.tensor([2, S, 300, 5], dtype=torch.int32, device=DEV)
+        kn, vn = (torch.randn((4, QWEN.n_kv, QWEN.hd), generator=gen(S + 100 + i), device=DEV)
+                  for i in range(2))
+        k_want, v_want = kp.clone(), vp.clone()
+        for pool, new in ((k_want, kn), (v_want, vn)):  # the encode kernel, the row write
+            attn_ref.store_row_paged(pool, codec_ops.encode(new, 0, nbits=kv_bits), table, pos,
+                                     0, kv_bits=0)
+        got = attn_ops.decode_attention_append_paged(q, kn, vn, kp, vp, table, pos, lens, 0,
+                                                     kv_bits=kv_bits)
+        assert torch.equal(kp, k_want) and torch.equal(vp, v_want), \
+            f"paged append p{kv_bits}: pool codes differ from encode + the paged row write"
+        unfused = attn_ops.decode_attention_paged(q, k_want, v_want, table, lens, 0,
+                                                  kv_bits=kv_bits)
+        assert torch.equal(bits(got), bits(unfused)), \
+            f"paged append p{kv_bits}: output differs from the unfused paged call's bits"
+        kd, vd = attn_ref.depage(kp, table), attn_ref.depage(vp, table)
+        dense = attn_ops.decode_attention(q, kd, vd, lens, 0, kv_bits=kv_bits)
+        assert torch.equal(bits(got), bits(dense)), \
+            f"paged append p{kv_bits}: output differs from the dense kernel's bits"
+        rows.append(attention_case_errors(f"paged append p{kv_bits} bt{bt}", got, q,
+                                          live_codes(kd, lens), live_codes(vd, lens), lens, 0,
+                                          kv_bits, QWEN.hd, S))
+        appended.append(f"p{kv_bits} bt{bt}")
+        del q, k, v, kp, vp, k_want, v_want, kd, vd
+    torch.cuda.empty_cache()
+    DETAILS["paged_attention_checks"] = rows
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "cases": [r["case"] for r in rows],
+            "bit_exact_with_dense": [r["case"] for r in rows],
+            "min_control_over_tight": min(r["bf16_p_err"] / r["tight_limit"] for r in rows),
+            "append_bit_exact": appended}
+
+
 def check_softmax() -> dict:
     """Within 1 posit ulp (signed code space) of the plain version: the
     paper's softmax rows and phi3's logit rows, p16_1, plus p8 cases, qwen's
@@ -1069,14 +1245,205 @@ def run_softmax_path() -> tuple[dict, dict]:
     return {"rows": rows}, launches
 
 
-class EagerTwin(ContinuousBatchingEngine):
-    """The engine with its decode step run eagerly, op by op, on the card:
-    the captured graph's twin in ``profile_decode`` and the card's tests.
-    Only those build it; the shipped engine has no switch to it."""
+# the paged path: qwen2.5-14b P8_SERVE, 16 requests of 1,024 prompt tokens at
+# 90% overlap (bench_prefix_cache._requests), 32 generated each, pages of
+# 32,768 B (16 tokens of 8 KV heads x 128 at p8), S_max 1,056
 
-    def _build_executables(self, policy) -> None:
-        model = self.model
-        self._decode = lambda p, t, c: model.decode_step(p, t, c, policy)
+
+def prefix_requests(n: int, prompt_len: int, overlap: float, gen: int, vocab: int,
+                    seed: int = 0) -> list:
+    """``n`` requests as benchmarks/bench_prefix_cache.py ``_requests`` builds
+    them at rate 0: a shared head of round(overlap * prompt_len) tokens from
+    a fixed draw (seed 1234), unique tails from ``seed``, all at t = 0."""
+    rng = np.random.default_rng(1234)
+    n_shared = int(round(overlap * prompt_len))
+    shared = rng.integers(0, vocab, size=n_shared)
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=np.concatenate(
+        [shared, rng.integers(0, vocab, size=prompt_len - n_shared)]).astype(np.int32),
+        max_new_tokens=gen) for i in range(n)]
+
+
+def serve_recorded_timed(eng, reqs) -> dict:
+    """``eng.run(reqs)`` with every sampled logits row kept (a prefill's row,
+    and each decode step's active rows) and the decode steps timed apart
+    (``decode_tok_per_s``: tokens the steps emit over the seconds spent in
+    them, host and device, as bench_prefix_cache.py measures decode);
+    ``tok_per_s``: every token over the run's wall time, prefill included.
+    For a paged engine the peak of live blocks after any admission or step."""
+    seen, sample, step = [], eng._next_token, eng.step
+    timed = {"s": 0.0, "emitted": 0, "live": 0}
+    paged = hasattr(eng, "manager")
+
+    def recording(logits):
+        if logits.shape[0] == eng.max_slots:
+            idx = torch.from_numpy(np.nonzero(eng.active)[0]).to(logits.device)
+            seen.append(logits.index_select(0, idx).clone())
+        else:
+            seen.append(logits.clone())
+        if paged:
+            timed["live"] = max(timed["live"], eng.manager.stats()["live"])
+        return sample(logits)
+
+    def timed_step(now=0.0):
+        t0 = time.perf_counter()
+        n = step(now)
+        timed["s"] += time.perf_counter() - t0
+        timed["emitted"] += n
+        return n
+
+    eng._next_token, eng.step = recording, timed_step
+    t0 = time.perf_counter()
+    try:
+        done = eng.run(reqs)
+    finally:
+        del eng._next_token, eng.step   # the class's methods again, no cycle
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_tok = [t for c in done for t in c.per_token_s()[1:]]
+    out = {"tokens": {c.rid: c.tokens for c in done}, "seen": seen,
+           "reasons": sorted({c.finish_reason for c in done}), "decode_steps": eng.steps,
+           "decode_tok_per_s": timed["emitted"] / timed["s"],
+           "tok_per_s": sum(len(c.tokens) for c in done) / wall, "wall_s": wall,
+           "p50_token_ms": float(np.percentile(per_tok, 50) * 1e3),
+           "p50_ttft_ms": float(np.percentile([c.ttft_s for c in done], 50) * 1e3),
+           "kv_bytes_allocated": sum(t.numel() * t.element_size()
+                                     for t in (eng.cache["kv"]["k"], eng.cache["kv"]["v"]))}
+    if paged:
+        out["kv_bytes_peak_live"] = eng.geom.pool_bytes(timed["live"])
+        out["peak_live_blocks"] = timed["live"]
+        out["prefix_cache"] = eng.prefix_stats()
+        out["n_blocks"] = eng.n_blocks
+    else:
+        out["kv_bytes_peak_live"] = out["kv_bytes_allocated"]
+    return out
+
+
+def run_paged_path() -> tuple[dict, dict]:
+    """qwen2.5-14b at full width and depth, P8_SERVE, random weights from
+    seed 0: the PAGED_REQUESTS prefix-sharing requests served four ways, the
+    slot grid at 4 slots, the paged engine at 4 slots (the default pool: the
+    4-slot grid's bytes, 264 blocks of 16 tokens), the grid at 16 slots and
+    the paged engine at 16 slots on those 264 blocks. Paged and grid give
+    the same tokens and every sampled logits row bit for bit at 4 and at 16
+    slots; each paged run has 15 prefix hits of 912 tokens; at 16 slots all
+    16 are admitted at once (one wave of 31 steps) and none ends
+    ``cache_full``; no paged run launches the dense attention kernel, its
+    decode steps 48 paged launches each, and its only encodes are the
+    prefills' K/V blocks. Then a fork of a live request streams as the
+    request alone, through copy-on-write."""
+    from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine as Paged
+
+    model = build_model(QWEN)
+    params = model.init(0, P8_SERVE)
+    reqs = lambda: prefix_requests(PAGED_REQUESTS, PAGED_PROMPT, PAGED_OVERLAP,  # noqa: E731
+                                   PAGED_GEN, QWEN.vocab)
+    n_hit = PAGED_REQUESTS - 1
+    bt = PAGED_PAGE_BYTES // (2 * QWEN.n_kv * QWEN.hd)   # 16
+    hit_tokens = int(round(PAGED_OVERLAP * PAGED_PROMPT)) // bt * bt   # 57 full blocks
+    kernels.reset_launches()
+    runs, n_blocks = {}, None
+    for name, cls, slots in (("grid4", ContinuousBatchingEngine, 4), ("paged4", Paged, 4),
+                             ("grid16", ContinuousBatchingEngine, 16), ("paged16", Paged, 16)):
+        kw = {} if cls is ContinuousBatchingEngine else {"page_bytes": PAGED_PAGE_BYTES,
+                                                          "n_blocks": n_blocks}
+        eng = cls(model, params, P8_SERVE, max_slots=slots, S_max=PAGED_S_MAX, **kw)
+        before = dict(kernels.LAUNCHES)
+        res = serve_recorded_timed(eng, reqs())
+        res["launches"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        res["captured"] = type(eng._decode).__name__ == "CapturedStep"
+        assert res["captured"], f"paged path {name}: the decode step was not captured"
+        assert res["reasons"] == ["max_new"], f"paged path {name}: {res['reasons']}"
+        if cls is Paged:
+            n_blocks = eng.n_blocks
+            st = res["prefix_cache"]
+            assert (st["hits"], st["hit_tokens"]) == (n_hit, n_hit * hit_tokens), st
+            la = res["launches"]
+            assert la["posit_attention"] == 0, f"paged path {name}: dense attention launched"
+            assert la["posit_attention_paged"] == res["decode_steps"] * QWEN.n_layers, la
+            assert la["posit_encode"] == PAGED_REQUESTS * 2 * QWEN.n_layers, la
+        if name == "paged16":
+            fork = fork_streams(eng, reqs()[0], res["tokens"][0])
+        runs[name] = res
+        del eng
+        torch.cuda.empty_cache()
+    launches = dict(kernels.LAUNCHES)
+    assert runs["paged4"]["n_blocks"] == 4 * -(-PAGED_S_MAX // bt), runs["paged4"]["n_blocks"]
+    assert runs["paged16"]["decode_steps"] == PAGED_GEN - 1, \
+        f"paged path: 16 slots took {runs['paged16']['decode_steps']} steps, not one wave"
+    for slots in (4, 16):
+        g, p = runs[f"grid{slots}"], runs[f"paged{slots}"]
+        assert p["tokens"] == g["tokens"], f"paged path: tokens differ from the grid at {slots}"
+        assert_bit_identical(p["seen"], g["seen"], f"paged against grid at {slots} slots")
+    keys = ("decode_steps", "decode_tok_per_s", "tok_per_s", "wall_s", "p50_token_ms",
+            "p50_ttft_ms", "kv_bytes_allocated", "kv_bytes_peak_live")
+    report = {name: {k: r[k] for k in keys + ("prefix_cache", "peak_live_blocks", "n_blocks")
+                     if k in r} for name, r in runs.items()}
+    report.update(bit_identical={"4": len(runs["paged4"]["seen"]),
+                                 "16": len(runs["paged16"]["seen"])},
+                  prefix_hits=n_hit, hit_tokens_each=hit_tokens,
+                  admitted_at_once_16=PAGED_REQUESTS, fork=fork,
+                  run_launches={n: r["launches"] for n, r in runs.items()})
+    del params, model, runs
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def fork_streams(eng, req, alone: list) -> dict:
+    """``req`` served alone on a reset engine, forked after two decode steps:
+    both streams equal to each other and to ``alone``, with at least one
+    copy-on-write."""
+    eng.reset()
+    eng.submit(req)
+    eng.admit()
+    eng.step()
+    eng.step()
+    eng.fork(req.rid, 1000)
+    while eng.active.any():
+        eng.step()
+    torch.cuda.synchronize()
+    got = {c.rid: c.tokens for c in eng.completions}
+    assert got[req.rid] == got[1000] == alone, "fork: the two greedy streams differ"
+    cow = eng.prefix_stats()["cow_copies"]
+    assert cow >= 1, "fork: no copy-on-write"
+    return {"streams_equal": True, "tokens": len(alone), "cow_copies": cow}
+
+
+def run_paged_serve() -> tuple[dict, dict]:
+    """The paged engine through the entry point: ``serve(paged=True,
+    page_bytes=32768)``, qwen2.5-14b P8_SERVE, 8 requests (prompt 64, gen
+    16, 4 slots)."""
+    events = []
+    kernels.reset_launches()
+    report = serve("qwen2.5-14b", policy="p8-serve", max_slots=4, requests=8, prompt_len=64,
+                   gen=16, seed=0, paged=True, page_bytes=PAGED_PAGE_BYTES, device="cuda",
+                   emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert report["mode"] == "paged" and "prefix_cache" in report, report.get("mode")
+    assert launches["posit_attention_paged"] > 0 and launches["posit_attention"] == 0, launches
+    assert report["requests"] == 8, report["requests"]
+    assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the paged serve"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the KV pool"
+    DETAILS["paged_serve_events"] = events
+    return report, launches
+
+
+def eager_twin(engine):
+    """The eager twin of an engine class: the class with the decode step that
+    its ``_build_executables`` hands ``_bind_decode`` run eagerly, op by op,
+    on the card, not captured. The captured graph's twin in
+    ``profile_decode`` and the card's tests; the shipped engines have no
+    switch to it."""
+
+    def bind(self, decode, state):
+        self._decode = decode
+
+    return type(f"Eager{engine.__name__}", (engine,), {"_bind_decode": bind})
+
+
+EagerTwin = eager_twin(ContinuousBatchingEngine)   # the slot grid's
 
 
 SWAP_STEP = 2   # the decode step after which a recorded run swaps its policy
@@ -1098,7 +1465,7 @@ def served_recorded(eng, reqs, swap=None) -> tuple[dict, list]:
                 eng.apply_policy(swap)
             eng.step()
     finally:
-        eng._next_token = sample
+        del eng._next_token   # the class's method again (an instance attribute is a cycle)
     torch.cuda.synchronize()
     return {c.rid: c.tokens for c in eng.completions}, seen
 
@@ -1134,11 +1501,7 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
     step_launches = {k: (kernels.LAUNCHES[k] - before[k]) / steps for k in before}
     quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - before["posit_quire_gemm"]
     shares = quire_step_share(eng) if share else None
-    # kernels only: the aten::* rows repeat their kernels' device time, and a
-    # runtime call's row (cudaLaunchKernel, cudaGraphLaunch) its launches
-    by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                      if e.self_device_time_total > 0
-                      and not e.key.startswith(("aten::", "cuda"))),
+    by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in device_rows(prof)),
                      key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
     epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
@@ -1178,7 +1541,8 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
 
 
 def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 4,
-                   share: bool = False, swap=None) -> dict:
+                   share: bool = False, swap=None, engine=ContinuousBatchingEngine,
+                   engine_kw=None, slots: int = 4) -> dict:
     """Where a decode step's time goes, with the step captured in a CUDA
     graph and run eagerly (``EagerTwin``): the full model at 4 busy slots,
     the same params, requests and seeds for both. Each engine first serves
@@ -1192,14 +1556,17 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     logit bit for bit, the same launch counts a step and over the timed run,
     and within one kernel a step of the same profiled kernels. Returns the
     graph's numbers, the twin's under "eager" and the comparison under
-    "graph_vs_eager"."""
+    "graph_vs_eager". ``engine`` is the engine class (its eager twin from
+    ``eager_twin``), built with ``engine_kw`` too, at ``slots`` slots and
+    as many requests."""
     model = build_model(arch)
     params = model.init(0, policy)
     runs = {}
-    for name, cls in (("graph", ContinuousBatchingEngine), ("eager", EagerTwin)):
+    for name, cls in (("graph", engine), ("eager", eager_twin(engine))):
         kernels.reset_launches()
-        eng = cls(model, params, policy, max_slots=4, S_max=prompt_len + 16)
-        reqs = poisson_requests(4, arrival_rate=0.0, prompt_lens=(prompt_len,),
+        eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + 16,
+                  **(engine_kw or {}))
+        reqs = poisson_requests(slots, arrival_rate=0.0, prompt_lens=(prompt_len,),
                                 max_new_tokens=16, vocab=arch.vocab, seed=1)
         recorded = served_recorded(eng, reqs, swap)
         if swap is not None:
@@ -1232,8 +1599,8 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     assert graph["run_launches"] == eager["run_launches"], (graph["run_launches"],
                                                            eager["run_launches"])
     assert graph["launches_per_step"] == eager["launches_per_step"]
-    # the profiler reports the kernels inside a graph launch by name (a
-    # window's edges may split a step: a fraction of a kernel a step)
+    # the profiler reports the kernels inside a graph launch by name; now and
+    # then it loses a kernel's record (a fraction of a kernel a step)
     assert abs(graph["launches_all_kernels_per_step"]
                - eager["launches_all_kernels_per_step"]) <= 1, \
         (f"{arch.name}: the profiler saw {graph['launches_all_kernels_per_step']} kernels a "
@@ -1266,13 +1633,16 @@ def profile_log(prof: dict) -> dict:
     return {k: v for k, v in prof.items() if k not in ("top", "eager")}
 
 
-def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0) -> None:
+def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0,
+                          attention: str = "posit_attention") -> None:
     """A decode step writes its K/V rows inside the attention kernel: one
-    attention launch a layer, no encode launch beyond ``encodes`` and no
-    gather or index_put kernel of a KV write."""
+    ``attention`` launch a layer (the dense kernel, or the paged one), none
+    of the other, no encode launch beyond ``encodes`` and no gather or
+    index_put kernel of a KV write."""
     per_step = prof["launches_per_step"]
-    assert per_step["posit_attention"] == arch.n_layers, \
-        f"{name} decode step: {per_step['posit_attention']} attention launches"
+    other = "posit_attention_paged" if attention == "posit_attention" else "posit_attention"
+    assert per_step[attention] == arch.n_layers and per_step[other] == 0, \
+        f"{name} decode step: {per_step[attention]} {attention}, {per_step[other]} {other}"
     assert per_step["posit_encode"] == encodes, \
         f"{name} decode step: {per_step['posit_encode']} encode launches, {encodes} expected"
     # one gather a step is the token embedding's; a KV write outside the
@@ -1528,6 +1898,89 @@ def attention_timings() -> list:
     return rows
 
 
+def _cold_ms(fn, tensors: tuple) -> tuple[float, int]:
+    """Device ms of ``fn(*copy)`` over rotated copies of ``tensors`` whose
+    bytes exceed COLD_BYTES (read cold, as a step reads each layer's cache),
+    and the number of copies."""
+    import itertools
+
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    copies = _rotated(tensors, 1 + int(COLD_BYTES // nbytes))
+    turn = itertools.cycle(copies)
+    ms = time_ms(lambda: fn(*next(turn)))
+    del copies, turn
+    torch.cuda.empty_cache()
+    return ms, 1 + int(COLD_BYTES // nbytes)
+
+
+PAGED_TIMED_BT = (16, 1)
+
+
+def sdpa_ms(q, kd, vd, lens) -> float:
+    """One scaled_dot_product_attention call over decoded f32 K/V (B, Hkv,
+    S, d) with each row's length as a boolean mask, read cold; enable_gqa
+    where this torch has it, else K/V repeated a q-head."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    S, g = kd.shape[2], q.shape[1] // kd.shape[1]
+    mask = (torch.arange(S, device=DEV)[None, :] < lens[:, None])[:, None, None, :]
+    try:
+        sdpa(q[:, :, None], kd, vd, attn_mask=mask, enable_gqa=True)
+        return _cold_ms(lambda kc, vc: sdpa(q[:, :, None], kc, vc, attn_mask=mask,
+                                            enable_gqa=True), (kd, vd))[0]
+    except TypeError:
+        kd, vd = (t.repeat_interleave(g, dim=1) for t in (kd, vd))
+        return _cold_ms(lambda kc, vc: sdpa(q[:, :, None], kc, vc, attn_mask=mask), (kd, vd))[0]
+
+
+def paged_attention_timings() -> list:
+    """The paged kernel read cold at qwen2.5-14b's heads, p8, 4 full rows of
+    S = 4,096, at bt 16 and 1 (PAGED_TIMED_BT) over shuffled pools of exactly
+    the live pages, beside the dense kernel on the same codes in the same
+    run, with the dense rows' bound (the live codes once, q and out)."""
+    S, lengths = 4096, (4096,) * 4
+    q, k, v, lens = attn_inputs(8, S=S, lengths=lengths, seed=S + 7)
+    live = sum(lengths)
+    nbytes = 2 * live * QWEN.n_kv * QWEN.hd + 2 * q.numel() * 4 + lens.numel() * 4
+    b_ms, by = bound_ms(nbytes, 4.0 * QWEN.n_heads * QWEN.hd * live, "f32")
+    dense_ms, n_rot = _cold_ms(
+        lambda kc, vc: attn_ops.decode_attention(q, kc, vc, lens, 0, kv_bits=8), (k, v))
+    rows = [{"case": f"qwen p8 S{S} dense", "ms": dense_ms, "bound_ms": b_ms, "bound_by": by,
+             "bytes": nbytes, "rotated_caches": n_rot}]
+    for bt in PAGED_TIMED_BT:
+        kp, vp, table = page_cache(k, v, lengths, bt, seed=bt, extra=0)
+        ms, n_rot = _cold_ms(lambda kc, vc: attn_ops.decode_attention_paged(
+            q, kc, vc, table, lens, 0, kv_bits=8), (kp, vp))
+        rows.append({"case": f"qwen p8 S{S} paged bt{bt}", "ms": ms, "dense_ms": dense_ms,
+                     "over_dense": ms / dense_ms, "bound_ms": b_ms, "bound_by": by,
+                     "bytes": nbytes, "rotated_caches": n_rot})
+        del kp, vp, table
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+def paged_path_shape_error(q, kp, vp, table, lens) -> float:
+    """The paged kernel against its plain version on ``time_kernels``' inputs
+    at the paged path's 16-slot shape (p8, bt 16, W 66): within the contract's
+    limit and the tight one (phase 4's, max|V| over the live codes), and bit
+    for bit the dense kernel on the de-paged cache. Returns the error."""
+    S = table.shape[1] * kp.shape[2]
+    got = attn_ops.decode_attention_paged(q, kp, vp, table, lens, 0, kv_bits=8)
+    plain = attn_ref.posit_decode_attention_paged_ref(q, kp, vp, table, lens, 0, kv_bits=8)
+    kd, vd = attn_ref.depage(kp, table), attn_ref.depage(vp, table)
+    dense = attn_ops.decode_attention(q, kd, vd, lens, 0, kv_bits=8)
+    vmax = float(codec_ref.decode_ref(live_codes(vd, lens), 0, nbits=8).abs().max())
+    row = {"case": f"paged path p8 bt{kp.shape[2]} B{q.shape[0]} S{S}",
+           "max_abs_err": float((got - plain).abs().max()),
+           "limit": 4 * (QWEN.hd + 2 * S) * U * vmax, "tight_limit": TIGHT_ULPS * U * vmax,
+           "bit_exact_with_dense": torch.equal(bits(got), bits(dense))}
+    DETAILS["paged_attention_path_shape"] = row
+    assert row["bit_exact_with_dense"], f"attention {row['case']}: differs from the dense kernel"
+    assert row["max_abs_err"] <= min(row["limit"], row["tight_limit"]), \
+        f"attention {row['case']}: {row}"
+    return row["max_abs_err"]
+
+
 def time_kernels(launches: dict, errs: dict) -> list:
     """One row per kernel; ``launches`` maps each kernel to its count on the
     path it belongs to."""
@@ -1605,6 +2058,30 @@ def time_kernels(launches: dict, errs: dict) -> list:
         time_ms(lambda: attn_ops.decode_attention(q, k, v, lens, 0, kv_bits=8)),
         time_ms(lambda: posit_decode_attention_ref(q, k, v, lens, 0, kv_bits=8)),
         nbytes, 4.0 * QWEN.n_heads * QWEN.hd * live, "f32", lib)
+    # paged attention: the paged path's decode step at 16 slots, mid-run (1,040
+    # positions a row in pages of 16, W 66), read cold; the library call is SDPA
+    # on the de-paged decoded f32 cache. The kernel's output on these inputs is
+    # held to the plain version within phase 4's limits, its error the row's
+    plen = (PAGED_PROMPT + 16,) * PAGED_REQUESTS
+    pq, pk, pv, plens = attn_inputs(8, B=PAGED_REQUESTS, S=PAGED_S_MAX, lengths=plen, seed=11)
+    kp, vp, table = page_cache(pk, pv, plen, 16, seed=11, extra=0)
+    del pk, pv
+    errs = dict(errs, posit_attention_paged=max(
+        errs["posit_attention_paged"], paged_path_shape_error(pq, kp, vp, table, plens)))
+    live = sum(plen)
+    nbytes = (pq.numel() * 4 * 2 + 2 * live * QWEN.n_kv * QWEN.hd + plens.numel() * 4
+              + table.numel() * 4)
+    ms, _ = _cold_ms(lambda kc, vc: attn_ops.decode_attention_paged(pq, kc, vc, table, plens,
+                                                                    0, kv_bits=8), (kp, vp))
+    pkd, pvd = (codec_ops.decode(attn_ref.depage(t, table), 0, nbits=8) for t in (kp, vp))
+    row("posit_attention_paged", "src/repro_torch/csrc/posit_attention.cu",
+        "src/repro/kernels/posit_attention/posit_attention.py:131", ms,
+        time_ms(lambda: attn_ref.posit_decode_attention_paged_ref(pq, kp, vp, table, plens, 0,
+                                                                  kv_bits=8),
+                windows=3, calls=2),
+        nbytes, 4.0 * QWEN.n_heads * QWEN.hd * live, "f32", sdpa_ms(pq, pkd, pvd, plens))
+    del pq, kp, vp, pkd, pvd, table
+    DETAILS["paged_attention_timings"] = paged_attention_timings()
     q5, k5, v5, l5 = attn_inputs(8, lengths=(512, 512, 512, 512), seed=6)
     DETAILS["attention_S512_ms"] = time_ms(
         lambda: attn_ops.decode_attention(q5, k5, v5, l5, 0, kv_bits=8))
@@ -1666,6 +2143,8 @@ def main() -> int:
     log("quire_gemm_packed", **check_quire_packed())
     attn_res = check_attention()
     log("attention", **attn_res)
+    paged_res = check_paged_attention()
+    log("attention_paged", **paged_res)
     softmax_res = check_softmax()
     log("softmax", **softmax_res)
     from repro_torch.core.policy import get_precision_policy
@@ -1712,6 +2191,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     sm_res, sm_launches = run_softmax_path()
     log("softmax_path", launches=sm_launches, **sm_res)
+    t0 = time.perf_counter()
+    p_report, p_launches = run_paged_path()
+    log("paged_path", seconds=time.perf_counter() - t0, launches=p_launches, **p_report)
+    DETAILS["paged_path_report"] = p_report
+    t0 = time.perf_counter()
+    ps_report, ps_launches = run_paged_serve()
+    log("paged_serve", seconds=time.perf_counter() - t0, launches=ps_launches,
+        **{k: ps_report[k] for k in keys + ("mode", "prefix_cache")})
+    DETAILS["paged_serve_report"] = ps_report
     # P8_SERVE swaps to f32 compute over its live rows in the recorded run
     prof = profile_decode(swap=dataclasses.replace(P8_SERVE, compute_dtype="f32"))
     log("profile", **profile_log(prof))
@@ -1752,16 +2240,31 @@ def main() -> int:
     # write adds none
     assert_kv_write_fused(q_prof, PHI3, "quire", q_prof["quire_gemm_calls_per_step"])
     DETAILS["quire_decode_profile"] = q_prof
+    from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
+
+    pg_prof = profile_decode(engine=PagedContinuousBatchingEngine,
+                             engine_kw={"page_bytes": PAGED_PAGE_BYTES})
+    log("profile_paged", **profile_log(pg_prof))
+    # 48 paged attention launches a step, no dense attention and no encode
+    assert_kv_write_fused(pg_prof, QWEN, "paged", attention="posit_attention_paged")
+    DETAILS["paged_decode_profile"] = pg_prof
+    # the paged path's 16 slots: where a step's time goes at M = 16
+    pg16_prof = profile_decode(engine=PagedContinuousBatchingEngine,
+                               engine_kw={"page_bytes": PAGED_PAGE_BYTES}, slots=PAGED_REQUESTS)
+    log("profile_paged16", **profile_log(pg16_prof))
+    assert_kv_write_fused(pg16_prof, QWEN, "paged, 16 slots", attention="posit_attention_paged")
+    DETAILS["paged16_decode_profile"] = pg16_prof
     # every profiled path's decode step is one captured graph, bit for bit its
     # eager twin (asserted in profile_decode)
     for path, p in (("p8_serve", prof), ("long", l_prof), ("mixed", m_prof),
-                    ("quire", q_prof)):
+                    ("quire", q_prof), ("paged", pg_prof), ("paged16", pg16_prof)):
         log("graph_vs_eager", **graph_line(path, p))
         assert p["captured"], f"the {path} engine did not capture its decode step"
 
     errs = {"posit_encode": codec_res["encode_max_abs_err"],
             "posit_decode": codec_res["decode_max_abs_err"],
             "posit_gemm": gemm_res["max_abs_err"], "posit_attention": attn_res["max_abs_err"],
+            "posit_attention_paged": paged_res["max_abs_err"],
             "posit_gemm_packed": packed_res["max_abs_err"],
             "posit_gemm_packed_fma": packed_res["max_abs_err"],
             "posit_gemm_p16": p16_res["max_abs_err"],
@@ -1769,13 +2272,16 @@ def main() -> int:
             "posit_softmax": softmax_res["max_abs_err"]}
     DETAILS["path_launches"] = {"p8_serve": launches, "mixed": m_launches,
                                 "mixed_f32": f_launches, "quire": q_launches,
-                                "long": l_launches, "softmax": sm_launches}
+                                "long": l_launches, "softmax": sm_launches,
+                                "paged": p_launches, "paged_serve": ps_launches}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
                     posit_gemm_p16=m_launches["posit_gemm_p16"],
                     posit_gemm_packed_fma=f_launches["posit_gemm_packed_fma"],
                     posit_quire_gemm=q_launches["posit_quire_gemm"],
-                    posit_softmax=sm_launches["posit_softmax"])
+                    posit_softmax=sm_launches["posit_softmax"],
+                    posit_attention_paged=p_launches["posit_attention_paged"])
     rows = time_kernels(launches, errs)
+    log("attention_paged_timings", rows=DETAILS["paged_attention_timings"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     DETAILS.update(kernels=rows, nvidia_smi=smi, seconds=time.perf_counter() - t_start)

@@ -2,7 +2,7 @@
 decode attention on one NVIDIA GPU, for this checkout's package or for
 another checkout's:
 
-    python3 kernel_timings.py [--src DIR] [--profiles]
+    python3 kernel_timings.py [--src DIR] [--profiles | --attention]
 
 DIR is the ``src`` directory of another checkout, for example the parent
 commit unpacked with ``git archive`` under ``build/`` (which .gitignore
@@ -26,7 +26,10 @@ the softmax beside torch.softmax on the decoded rows; and decode attention
 (``attention_timings``) at qwen2.5-14b's heads with p8 KV at S = 80, 512,
 4,096 and 32,768, a ragged batch and p16 KV at 4,096, and phi3-mini-3.8b's
 heads with p16 KV at 4,096, each read cold, beside its byte bound and
-scaled_dot_product_attention on the decoded f32 cache.
+scaled_dot_product_attention on the decoded f32 cache; where the package has
+the paged engine, the paged attention kernel read cold at S = 4,096 with
+pages of 16 and of 1 token beside the dense kernel on the same codes
+(``paged_attention_timings``).
 With --profiles it also profiles one decode step of qwen2.5-14b under
 P8_SERVE and under attn-p16-mlp-p8 over p8-serve, and of phi3-mini-3.8b
 under the quire (chip_smoke.py ``profile_decode``: wall time, device time,
@@ -34,6 +37,9 @@ device kernels and the wrappers' launches a step), replayed from the
 engine's captured CUDA graph and run eagerly (under "eager"), so a step's
 before and after come from one card. A package whose engine captures no
 graph runs both eagerly ("captured": false).
+With --attention it builds only the codec and attention kernels and times
+only decode attention (``attention_timings`` and, where the package has it,
+``paged_attention_timings``), for a quick before and after of that kernel.
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -62,6 +68,17 @@ def main() -> int:
     import chip_smoke as smoke
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    paged = (src / "repro_torch" / "launch" / "paged_engine.py").exists()
+    if "--attention" in sys.argv:
+        res = {"src": str(src), "nvidia_smi": smi,
+               "build_seconds": smoke.build.build(("posit_codec", "posit_attention")),
+               "attention": smoke.attention_timings()}
+        if paged:
+            res["paged_attention"] = smoke.paged_attention_timings()
+        print(json.dumps({"timings": res}))
+        return 0
     seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_attention",
                                  "posit_quire_gemm", "posit_softmax"))
     res = {"src": str(src), "build_seconds": seconds,
@@ -79,9 +96,9 @@ def main() -> int:
         softmax=smoke.softmax_timings(),
         attention=smoke.attention_timings(),
         profiler_empty_windows=smoke.DETAILS.get("profiler_empty_windows", 0),
-        nvidia_smi=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                                   "--format=csv,noheader"], capture_output=True, text=True,
-                                  check=True).stdout.strip())
+        nvidia_smi=smi)
+    if paged:
+        res["paged_attention"] = smoke.paged_attention_timings()
     if "--profiles" in sys.argv:
         from repro_torch.core.policy import get_precision_policy
 

@@ -61,6 +61,22 @@
 //   wrote. No block reads a code another block writes (the blocks of other
 //   q-head groups write the same bytes, and read their own). Rows with pos[b]
 //   outside [0, S) are not written.
+// * Paged mode (`table` given; kernels/posit_attention/ops.py
+//   `decode_attention_paged`, the reference's `posit_decode_attention_paged`,
+//   which de-pages through one XLA gather before its tiled loop): K/V live in
+//   pools (N, Hkv, bt, d) and position p of row b in block table[b, p / bt] at
+//   offset p % bt. Only the addresses change: the split plan, the warp steps,
+//   the MMAs and the merge order are the dense mode's, with S = W * bt, so a
+//   row's output is bit for bit the dense kernel's on the de-paged cache. A
+//   block stages the pool row of each of its split's positions in shared
+//   memory once (kChunk ints), so the loads do no division. A table entry
+//   outside [0, N) (the sentinel) is never dereferenced: its rows load as
+//   zeros, like positions past the length (code 0 is exact 0.0), so a
+//   recycled page's stale NaR codes cannot reach acc. The append writes to
+//   table[b, p / bt] and drops the write when p / bt >= W or the entry is a
+//   sentinel (an inactive slot's table is all sentinels).
+#include <type_traits>
+
 #include "posit_codec.cuh"
 
 namespace {
@@ -124,6 +140,8 @@ struct AttnArgs {
   const int* pos;      // append: (B,) write positions, or null
   float* part;         // (Y, nsx, kGP, 2 + d) split partials when nsx > 1
   int* counters;       // (Y,) zeroed, when nsx > 1
+  const int* table;    // paged: (B, W) block ids, or null (dense)
+  int W, bt, N;        // paged: table width, positions a block, pool blocks
   int Hq, Hkv, S, d, es, n_hg, nsx, nw;
   float scale;
 };
@@ -140,9 +158,10 @@ __host__ __device__ int region_bytes(int d, int nsx, int nw) {
   return (imax(loop, imax(merge, comb)) + 15) & ~15;
 }
 
+// ... then, in paged mode, the split's pool rows (kChunk ints).
 template <int KIND, int MT>
-int smem_bytes(int d, int nsx, int nw) {
-  return region_bytes<KIND, MT>(d, nsx, nw) + nw * kStep * kGP * 4;
+int smem_bytes(int d, int nsx, int nw, bool paged) {
+  return region_bytes<KIND, MT>(d, nsx, nw) + nw * kStep * kGP * 4 + (paged ? kChunk * 4 : 0);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
@@ -258,17 +277,27 @@ __global__ void __launch_bounds__(Shape<MT>::NW_MAX * 32, 2) attn_kernel(AttnArg
   const int g = a.Hq / a.Hkv, j0 = hg * kGP, gp = min(kGP, g - j0);
   const int d = a.d, S = a.S, nmt = d / 16;
   const int rb = d * EB, cpr = rb / 16;  // bytes and 16-byte chunks a row
-  const long long row0 = static_cast<long long>(bh) * S;
+  const bool paged = a.table != nullptr;  // S = W * bt in paged mode
+  const long long row0 = static_cast<long long>(bh) * S;  // dense: the row's first K/V row
 
   if (a.pos != nullptr) {  // the append: uniform over the block
     const int p = a.pos[b];
     if (p >= 0 && p < S && p / kChunk == split) {
-      const long long src = static_cast<long long>(bh) * d, dst = (row0 + p) * d;
-      for (int c = tid; c < d; c += nt) {
-        store_elem<KIND>(a.k, dst + c, a.k_new[src + c], a.es);
-        store_elem<KIND>(a.v, dst + c, a.v_new[src + c], a.es);
+      long long dst = (row0 + p) * d;
+      if (paged) {
+        const int blk = a.table[static_cast<long long>(b) * a.W + p / a.bt];
+        dst = blk >= 0 && blk < a.N
+                  ? ((static_cast<long long>(blk) * a.Hkv + hk) * a.bt + p % a.bt) * d
+                  : -1;  // a sentinel entry: the write is dropped
       }
-      __threadfence();
+      if (dst >= 0) {
+        const long long src = static_cast<long long>(bh) * d;
+        for (int c = tid; c < d; c += nt) {
+          store_elem<KIND>(a.k, dst + c, a.k_new[src + c], a.es);
+          store_elem<KIND>(a.v, dst + c, a.v_new[src + c], a.es);
+        }
+        __threadfence();
+      }
     }
     __syncthreads();  // the row is in place before any thread loads its tile
   }
@@ -289,27 +318,50 @@ __global__ void __launch_bounds__(Shape<MT>::NW_MAX * 32, 2) attn_kernel(AttnArg
   const int s_lo = split * kChunk, nrows = min(kChunk, len - s_lo);
   const int bstep = kStep * a.nw;
   const int n_it = (nrows + bstep - 1) / bstep;
-  const uint8_t* kg = a.k + (row0 + s_lo) * rb;
-  const uint8_t* vg = a.v + (row0 + s_lo) * rb;
+  // paged: the pool row of each position of the split (-1: a sentinel entry)
+  int* prow = reinterpret_cast<int*>(smem + region_bytes<KIND, MT>(d, a.nsx, a.nw) +
+                                     a.nw * kStep * kGP * 4);
+  if (paged) {
+    const int* tb = a.table + static_cast<long long>(b) * a.W;
+    for (int j = tid; j < nrows; j += nt) {
+      const int p = s_lo + j, blk = tb[p / a.bt];
+      prow[j] = blk >= 0 && blk < a.N ? (blk * a.Hkv + hk) * a.bt + p % a.bt : -1;
+    }
+    __syncthreads();
+  }
+  const uint8_t* kg = paged ? a.k : a.k + (row0 + s_lo) * rb;
+  const uint8_t* vg = paged ? a.v : a.v + (row0 + s_lo) * rb;
   const int wst = 2 * kStep * rb;
   uint8_t* wring = rings + warp * 2 * wst;
   const int rmask = (cpr >= 8 ? 8 : (cpr >= 4 ? 4 : (cpr >= 2 ? 2 : 1))) - 1;
   const int lr0 = lane / cpr, lc0 = lane - lr0 * cpr;  // the lane's first chunk of a tile
   const int dr = 32 / cpr, dc = 32 - dr * cpr;
-  auto load = [&](int t) {
+  // One loop a mode (PAGED a compile-time constant inside it), chosen by a
+  // uniform branch: the dense loop is the same code as without a paged mode.
+  auto load_mode = [&](auto mode, int t) {
+    constexpr bool PAGED = decltype(mode)::value;
     uint8_t* dst = wring + (t & 1) * wst;
     const int r0 = t * bstep + warp * kStep;
     const int valid = max(0, min(kStep, nrows - r0)) * cpr;  // chunks
-    const uint8_t* ks = kg + static_cast<long long>(r0) * rb;
-    const uint8_t* vs = vg + static_cast<long long>(r0) * rb;
+    const uint8_t* ks = PAGED ? kg : kg + static_cast<long long>(r0) * rb;
+    const uint8_t* vs = PAGED ? vg : vg + static_cast<long long>(r0) * rb;
     int r = lr0, c = lc0;
 #pragma unroll 4
     for (int i = lane; i < kStep * cpr; i += 32) {
-      const bool in = i < valid;
+      bool in = i < valid;
+      const uint8_t* kc = ks + (in ? i * 16 : 0);  // dense: chunk c of row r (i = r * cpr + c)
+      const uint8_t* vc = vs + (in ? i * 16 : 0);
+      if constexpr (PAGED) {  // chunk c of the row's pool row
+        const int pr = in ? prow[r0 + r] : -1;
+        in = pr >= 0;
+        const long long src = in ? static_cast<long long>(pr) * rb + c * 16 : 0;
+        kc = kg + src;
+        vc = vg + src;
+      }
       int pc = c + (r & rmask);
       pc = pc >= cpr ? pc - cpr : pc;
-      cp_async16(dst + r * rb + pc * 16, ks + (in ? i * 16 : 0), in);
-      cp_async16(dst + kStep * rb + r * rb + pc * 16, vs + (in ? i * 16 : 0), in);
+      cp_async16(dst + r * rb + pc * 16, kc, in);
+      cp_async16(dst + kStep * rb + r * rb + pc * 16, vc, in);
       r += dr;
       c += dc;
       if (c >= cpr) {
@@ -317,6 +369,12 @@ __global__ void __launch_bounds__(Shape<MT>::NW_MAX * 32, 2) attn_kernel(AttnArg
         ++r;
       }
     }
+  };
+  auto load = [&](int t) {
+    if (paged)
+      load_mode(std::true_type{}, t);
+    else
+      load_mode(std::false_type{}, t);
   };
   if (n_it > 0) load(0);
   cp_async_commit();
@@ -588,7 +646,7 @@ __global__ void __launch_bounds__(Shape<MT>::NW_MAX * 32, 2) attn_kernel(AttnArg
 template <int KIND, int MT, bool EXACT>
 int launch(AttnArgs a, int B, cudaStream_t s) {
   a.nw = plan_warps<KIND, MT>(a.d);
-  const int smem = smem_bytes<KIND, MT>(a.d, a.nsx, a.nw);
+  const int smem = smem_bytes<KIND, MT>(a.d, a.nsx, a.nw, a.table != nullptr);
   if (smem > kMaxSmem - 1024) return static_cast<int>(cudaErrorInvalidValue);
   static int allowed = 0;  // the largest dynamic shared memory set so far
   if (smem > allowed) {
@@ -622,6 +680,29 @@ int warps_kind(int d) {
   return d <= 128 ? plan_warps<KIND, 8>(d) : plan_warps<KIND, 16>(d);
 }
 
+int launch_checked(AttnArgs a, int B, int kv_kind, int chunk, void* stream) {
+  if (B <= 0) return 0;
+  if (kv_kind < kF32 || kv_kind > kP16 || a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.d <= 0 ||
+      a.d > 256 || a.d % 16 != 0 || a.S <= 0 ||
+      (reinterpret_cast<uintptr_t>(a.k) | reinterpret_cast<uintptr_t>(a.v) |
+       reinterpret_cast<uintptr_t>(a.q)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the plan must be the kernel's (a compile-time split length keeps the
+  // step loop's bounds constant), cover S and the q-heads, and have its scratch
+  if (chunk != kChunk || a.nsx != (a.S + kChunk - 1) / kChunk ||
+      a.n_hg != (a.Hq / a.Hkv + kGP - 1) / kGP ||
+      (a.nsx > 1 && (a.part == nullptr || a.counters == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.es = a.es < 0 ? 0 : (a.es > 3 ? 3 : a.es);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kv_kind) {
+    case kF32: return launch_kind<kF32>(a, B, s);
+    case kBF16: return launch_kind<kBF16>(a, B, s);
+    case kP8: return launch_kind<kP8>(a, B, s);
+    default: return launch_kind<kP16>(a, B, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -647,27 +728,29 @@ int posit_attention_launch(const float* q, void* k, void* v, const int* lengths,
                            const float* k_new, const float* v_new, const int* pos, float* part,
                            int* counters, int B, int Hq, int Hkv, int S, int d, int kv_kind,
                            int es, int chunk, int nsx, int n_hg, float scale, void* stream) {
-  if (B <= 0) return 0;
-  if (kv_kind < kF32 || kv_kind > kP16 || Hkv <= 0 || Hq % Hkv != 0 || d <= 0 || d > 256 ||
-      d % 16 != 0 || S <= 0 ||
-      (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v) |
-       reinterpret_cast<uintptr_t>(q)) % 16 != 0)
+  const AttnArgs a{q, static_cast<uint8_t*>(k), static_cast<uint8_t*>(v), lengths, out, k_new,
+                   v_new, pos, part, counters, nullptr, 0, 0, 0, Hq, Hkv, S, d, es, n_hg, nsx,
+                   0, scale};
+  return launch_checked(a, B, kv_kind, chunk, stream);
+}
+
+// Paged mode: k/v are pools (N, Hkv, bt, d) of kv_kind, table (B, W) int32
+// block ids (an entry outside [0, N) is empty); the plan covers S = W * bt.
+// The other arguments are posit_attention_launch's.
+int posit_attention_paged_launch(const float* q, void* k, void* v, const int* table,
+                                 const int* lengths, float* out, const float* k_new,
+                                 const float* v_new, const int* pos, float* part, int* counters,
+                                 int B, int Hq, int Hkv, int N, int W, int bt, int d, int kv_kind,
+                                 int es, int chunk, int nsx, int n_hg, float scale,
+                                 void* stream) {
+  const long long S = static_cast<long long>(W) * bt;
+  if (table == nullptr || N <= 0 || W <= 0 || bt <= 0 || S > (1 << 30) ||
+      static_cast<long long>(N) * Hkv * bt > (1LL << 31) - 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the plan must be the kernel's (a compile-time split length keeps the
-  // step loop's bounds constant), cover S and the q-heads, and have its scratch
-  if (chunk != kChunk || nsx != (S + kChunk - 1) / kChunk || n_hg != (Hq / Hkv + kGP - 1) / kGP ||
-      (nsx > 1 && (part == nullptr || counters == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  AttnArgs a{q, static_cast<uint8_t*>(k), static_cast<uint8_t*>(v), lengths, out, k_new,
-             v_new, pos, part, counters, Hq, Hkv, S, d,
-             es < 0 ? 0 : (es > 3 ? 3 : es), n_hg, nsx, 0, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kv_kind) {
-    case kF32: return launch_kind<kF32>(a, B, s);
-    case kBF16: return launch_kind<kBF16>(a, B, s);
-    case kP8: return launch_kind<kP8>(a, B, s);
-    default: return launch_kind<kP16>(a, B, s);
-  }
+  const AttnArgs a{q, static_cast<uint8_t*>(k), static_cast<uint8_t*>(v), lengths, out, k_new,
+                   v_new, pos, part, counters, table, W, bt, N, Hq, Hkv,
+                   static_cast<int>(S), d, es, n_hg, nsx, 0, scale};
+  return launch_checked(a, B, kv_kind, chunk, stream);
 }
 
 }  // extern "C"

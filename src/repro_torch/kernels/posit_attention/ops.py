@@ -8,6 +8,11 @@ valid, so lengths clamp to the buffer size.
 ``decode_attention_append`` is the decode step's fused call: it writes the
 step's new K/V row into the cache (encoded, for a posit cache) and attends
 over the cache including it, in one launch.
+
+``decode_attention_paged`` and ``decode_attention_append_paged`` are the same
+two calls over a paged pool ``(N, Hkv, bt, d)`` and a block table ``(B, W)``
+(the reference's ``posit_decode_attention_paged``): the kernel reads the
+table itself, and a table entry ``>= N`` is empty.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.kernels.posit_attention import ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "posit_attention_launch": (_P,) * 10 + (_I,) * 10 + (ctypes.c_float, _P),
+    "posit_attention_paged_launch": (_P,) * 11 + (_I,) * 12 + (ctypes.c_float, _P),
     "posit_attention_warps": (_I, _I),
 }
 _KV_KIND = {(8, torch.uint8): 2, (16, torch.uint16): 3,
@@ -57,10 +63,19 @@ def _check(q, k_codes, v_codes, lengths):
     require(tuple(lengths.shape) == (B,), f"lengths must be ({B},)")
 
 
-def _launch(q, k_codes, v_codes, lengths, es, kv_bits, scale, append=None):
-    """The kernel on CUDA tensors; ``append`` = (k_new, v_new, pos) or None."""
+def _launch(q, k_codes, v_codes, lengths, es, kv_bits, scale, append=None, table=None):
+    """The kernel on CUDA tensors; ``append`` = (k_new, v_new, pos) or None;
+    ``table`` the (B, W) block table of a paged pool (N, Hkv, bt, d), or
+    None for a dense cache (B, Hkv, S, d)."""
     B, Hq, d = q.shape
-    _, Hkv, S, _ = k_codes.shape
+    if table is None:
+        _, Hkv, S, _ = k_codes.shape
+    else:
+        N, Hkv, bt, _ = k_codes.shape
+        W = table.shape[1]
+        S = W * bt
+        require(table.dtype == torch.int32, f"block_table must be int32, got {table.dtype}")
+        require(N * Hkv * bt < 2 ** 31 and S <= 2 ** 30, "pool or table too large for the kernel")
     kind = _KV_KIND.get((kv_bits, k_codes.dtype))
     require(kind is not None and v_codes.dtype == k_codes.dtype,
             f"kv_bits={kv_bits} does not take a {k_codes.dtype} cache")
@@ -70,6 +85,8 @@ def _launch(q, k_codes, v_codes, lengths, es, kv_bits, scale, append=None):
     require(d <= 256, f"head_dim {d} > 256: the kernel holds at most 256 columns a row")
     require(d % 16 == 0, f"head_dim {d} is not a multiple of 16, the kernel's MMA tile")
     tensors = [("q", q), ("k", k_codes), ("v", v_codes), ("lengths", lengths)]
+    if table is not None:
+        tensors.append(("block_table", table))
     if append is not None:
         tensors += list(zip(("k_new", "v_new", "pos"), append))
     for name, t in tensors:
@@ -88,12 +105,21 @@ def _launch(q, k_codes, v_codes, lengths, es, kv_bits, scale, append=None):
         counters = kernels.zeroed_counters(q.device, stream, B * Hkv * n_hg)
     k_new, v_new, pos = append if append is not None else (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = _lib().posit_attention_launch(
-        q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), ptr(k_new), ptr(v_new), ptr(pos), ptr(part), ptr(counters),
-        B, Hq, Hkv, S, d, kind, int(es), CHUNK, nsx, n_hg, float(scale), stream)
-    check_rc(rc, "posit_attention")
-    kernels.LAUNCHES["posit_attention"] += 1
+    if table is None:
+        rc = _lib().posit_attention_launch(
+            q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), ptr(k_new), ptr(v_new), ptr(pos), ptr(part), ptr(counters),
+            B, Hq, Hkv, S, d, kind, int(es), CHUNK, nsx, n_hg, float(scale), stream)
+        check_rc(rc, "posit_attention")
+        kernels.LAUNCHES["posit_attention"] += 1
+        return out
+    rc = _lib().posit_attention_paged_launch(
+        q.data_ptr(), k_codes.data_ptr(), v_codes.data_ptr(), table.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), ptr(k_new), ptr(v_new), ptr(pos), ptr(part),
+        ptr(counters), B, Hq, Hkv, N, W, bt, d, kind, int(es), CHUNK, nsx, n_hg, float(scale),
+        stream)
+    check_rc(rc, "posit_attention_paged")
+    kernels.LAUNCHES["posit_attention_paged"] += 1
     return out
 
 
@@ -138,3 +164,63 @@ def decode_attention_append(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.T
             "k_new and v_new must be float32")
     require(pos.dtype == torch.int32, f"pos must be int32, got {pos.dtype}")
     return _launch(q, k_cache, v_cache, lengths, es, kv_bits, scale, (k_new, v_new, pos))
+
+
+def _check_paged(q, k_pool, v_pool, block_table, lengths):
+    require(q.dim() == 3 and k_pool.dim() == 4 and k_pool.shape == v_pool.shape,
+            f"shapes q {tuple(q.shape)}, k pool {tuple(k_pool.shape)}, "
+            f"v pool {tuple(v_pool.shape)}")
+    B, Hq, d = q.shape
+    _, Hkv, _, dk = k_pool.shape
+    require(d == dk and Hq % Hkv == 0,
+            f"q {tuple(q.shape)} does not match the pool {tuple(k_pool.shape)}")
+    require(block_table.dim() == 2 and block_table.shape[0] == B,
+            f"block_table must be ({B}, W), got {tuple(block_table.shape)}")
+    require(tuple(lengths.shape) == (B,), f"lengths must be ({B},)")
+
+
+def decode_attention_paged(q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
+                           block_table: torch.Tensor, lengths: torch.Tensor, es: int, *,
+                           kv_bits: int, scale: Optional[float] = None) -> torch.Tensor:
+    """``decode_attention`` over a paged pool. q (B, Hq, d) float32; k/v pools
+    (N, Hkv, bt, d); block_table (B, W) int32, position p of row b in block
+    ``block_table[b, p // bt]`` at offset ``p % bt``, an entry >= N empty (its
+    rows read as zeros); lengths (B,) int32, clamped to W * bt. Returns
+    (B, Hq, d)."""
+    _check_paged(q, k_pool, v_pool, block_table, lengths)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    if on_cpu(q, k_pool, v_pool, block_table, lengths):
+        return ref.posit_decode_attention_paged_ref(q, k_pool, v_pool, block_table, lengths,
+                                                    es, kv_bits=kv_bits, scale=scale)
+    return _launch(q, k_pool, v_pool, lengths, es, kv_bits, scale, table=block_table)
+
+
+def decode_attention_append_paged(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                                  k_pool: torch.Tensor, v_pool: torch.Tensor,
+                                  block_table: torch.Tensor, pos: torch.Tensor,
+                                  lengths: torch.Tensor, es: int, *, kv_bits: int,
+                                  scale: Optional[float] = None) -> torch.Tensor:
+    """``decode_attention_append`` over a paged pool: k_new/v_new (B, Hkv, d)
+    float32 rows go into block ``block_table[b, pos[b] // bt]`` at offset
+    ``pos[b] % bt``, in place (encoded as the dense append encodes); a row
+    whose ``pos[b]`` is negative, at or past W * bt, or whose entry is empty
+    is not written. Then ``decode_attention_paged`` with ``lengths``, which
+    already counts the new row. Returns (B, Hq, d)."""
+    _check_paged(q, k_pool, v_pool, block_table, lengths)
+    B, d = q.shape[0], q.shape[-1]
+    Hkv = k_pool.shape[1]
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        require(tuple(t.shape) == (B, Hkv, d), f"{name} must be ({B}, {Hkv}, {d})")
+    require(tuple(pos.shape) == (B,), f"pos must be ({B},)")
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    if on_cpu(q, k_new, v_new, k_pool, v_pool, block_table, pos, lengths):
+        return ref.decode_attention_append_paged_ref(q, k_new, v_new, k_pool, v_pool,
+                                                     block_table, pos, lengths, es,
+                                                     kv_bits=kv_bits, scale=scale)
+    require(k_new.dtype == torch.float32 and v_new.dtype == torch.float32,
+            "k_new and v_new must be float32")
+    require(pos.dtype == torch.int32, f"pos must be int32, got {pos.dtype}")
+    return _launch(q, k_pool, v_pool, lengths, es, kv_bits, scale, (k_new, v_new, pos),
+                   table=block_table)

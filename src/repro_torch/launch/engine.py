@@ -17,10 +17,17 @@ the engine's persistent buffers (the token row, the cache and its lengths),
 so nothing rebinds them: admission, slot writes and ``reset`` copy into
 them in place. On a CPU model the step runs eagerly, the plain versions.
 Prefill stays eager.
+
+The hooks a subclass overrides to swap the cache layout (the paged engine,
+``launch/paged_engine.py``) are the reference's: ``_init_cache``,
+``_init_state``, ``_build_executables``, ``_can_admit``,
+``_prefill_into_slot``, ``_prepare_decode``, ``_release_slot``,
+``_quarantine`` and ``inject_nar_into``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable, Optional
 
@@ -110,6 +117,17 @@ def _copy_into(full, one) -> None:
     full.copy_(one)
 
 
+def _nar_code(t: torch.Tensor):
+    """The value that decodes to NaR/NaN in a KV array of ``t``'s dtype: p8
+    codes (uint8) 0x80, p16 codes (uint16) 0x8000, NaN in a float cache (the
+    reference's ``_nar_code``, src/repro/ft/serving.py)."""
+    if t.dtype == torch.uint8:
+        return 0x80
+    if t.dtype == torch.uint16:
+        return 0x8000
+    return float("nan")
+
+
 def _zero(tree) -> None:
     """Zero every leaf in place (code 0 is exact 0.0 in every posit format)."""
     if isinstance(tree, dict):
@@ -132,7 +150,12 @@ class CapturedStep:
     returns the captured call's own outputs (the logits tensor is
     overwritten by the next replay). Each replay adds the captured launches
     to ``kernels.LAUNCHES`` once; neither the warm-up nor the capture
-    counts. A failed capture raises: there is no eager fallback."""
+    counts. A failed capture raises: there is no eager fallback.
+
+    Python's cyclic garbage collector is run before the capture and held off
+    during it: an unreachable engine's graph freed by the collector in the
+    middle of a capture (``cudaGraphExecDestroy`` is not permitted while a
+    stream captures) would invalidate this one."""
 
     def __init__(self, fn: Callable, args: tuple, restore: tuple, stream):
         saved = [t.clone() for t in restore]
@@ -150,8 +173,15 @@ class CapturedStep:
             t.copy_(s)
         self.graph = torch.cuda.CUDAGraph()
         self.launches = kernels.CapturedLaunches()
-        with self.launches, torch.cuda.graph(self.graph, stream=stream):
-            self.out = fn(*args)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with self.launches, torch.cuda.graph(self.graph, stream=stream):
+                self.out = fn(*args)
+        finally:
+            if collecting:
+                gc.enable()
         self.args = args
 
     def __call__(self, *args):
@@ -209,20 +239,24 @@ class ContinuousBatchingEngine:
         outside, as they stay outside the reference's jit.
         """
         model = self.model
+        c = self.cache
+        self._bind_decode(lambda p, t, cache: model.decode_step(p, t, cache, policy),
+                          (c["lens"], c["pos"], c["kv"]["len"]))
+
+    def _bind_decode(self, decode: Callable, state: tuple) -> None:
+        """``self._decode`` = ``decode(params, token_row, cache)``: run eagerly
+        on a CPU model, captured in a CUDA graph on a CUDA model, where
+        ``state`` are the tensors the step advances (put back after the
+        warm-up). The old graph and its memory pool are dropped first."""
         self._decode = None
-
-        def decode(p, t, c):
-            return model.decode_step(p, t, c, policy)
-
         if self.device.type != "cuda":
             self._decode = decode
             return
         if self._stream is None:
             # one capture stream an engine: its kernel counters keep their size
             self._stream = torch.cuda.Stream(self.device)
-        c = self.cache
-        self._decode = CapturedStep(decode, (self.params, self.last_token, c),
-                                    (c["lens"], c["pos"], c["kv"]["len"]), self._stream)
+        self._decode = CapturedStep(decode, (self.params, self.last_token, self.cache), state,
+                                    self._stream)
 
     def apply_policy(self, policy) -> None:
         """Swap the serving policy mid-flight (degradation ladder step).
@@ -293,7 +327,16 @@ class ContinuousBatchingEngine:
     def free_slots(self) -> list:
         return [i for i in range(self.max_slots) if not self.active[i]]
 
+    def _can_admit(self, req: Request) -> bool:
+        """Beyond a free slot, can the cache take this request right now?
+        The slot grid always can (every slot owns S_max rows); the paged
+        engine gates on block availability (queueing is the backpressure)."""
+        return True
+
     def _prefill_into_slot(self, req: Request, slot: int):
+        """Prefill ``req`` and install its KV into ``slot``; returns
+        ``(logits, row_len)``. The paged engine overrides this with
+        prefix-matched block admission."""
         tokens = torch.as_tensor(req.prompt, dtype=torch.int32, device=self.device)[None]
         logits, one = self.model.prefill(self.params, tokens, self.policy, S_max=self.S_max)
         row_len = int(one["lens"][0])
@@ -311,6 +354,8 @@ class ContinuousBatchingEngine:
         for slot in self.free_slots():
             if not self.queue:
                 break
+            if not self._can_admit(self.queue[0]):
+                break       # FIFO: later requests must not starve the head
             req = self.queue.pop(0)
             t_admit = clock() if clock else now
             if req.prompt_len + req.max_new_tokens > self.S_max:
@@ -344,6 +389,9 @@ class ContinuousBatchingEngine:
     def step(self, now: float = 0.0) -> int:
         """One decode step over the whole slot grid; returns #tokens emitted."""
         if not self.active.any():
+            return 0
+        self._prepare_decode(now)
+        if not self.active.any():   # pool pressure may have evicted the rest
             return 0
         logits, self.cache = self._decode(self.params, self.last_token, self.cache)
         self.steps += 1
@@ -386,6 +434,34 @@ class ContinuousBatchingEngine:
             token_times=list(self.slot_token_times[slot]), finish_reason=reason))
         self.active[slot] = False
         self.slot_req[slot] = None
+        self._release_slot(slot)
+
+    def _prepare_decode(self, now: float) -> None:
+        """Pre-step cache maintenance hook. The slot grid needs none; the
+        paged engine allocates block-boundary pages, runs copy-on-write on
+        shared tails and refreshes the device block table here."""
+
+    def _quarantine(self, slot: int, now: float) -> None:
+        """Evict a nonfinite-logit slot and zero its K/V rows (code 0 is exact
+        0.0), so the dead row cannot poison the shared grid. The reference's
+        serving watchdog calls it; the port has no watchdog yet, so no
+        serving path here does."""
+        self._evict(slot, now, "numerics")
+        kv = self.cache["kv"]
+        for name in ("k", "v"):
+            kv[name][:, slot].zero_()
+
+    def _release_slot(self, slot: int) -> None:
+        """Per-eviction cache cleanup hook (the slot grid reuses rows as they
+        are; the paged engine drops the slot's block references)."""
+
+    def inject_nar_into(self, slot: int, count: int) -> None:
+        """Chaos hook: poison the first ``count`` occupied KV positions of
+        ``slot`` with NaR codes (at least one), in every layer."""
+        n = max(1, min(count, max(int(self.lens[slot]), 1)))
+        kv = self.cache["kv"]
+        for name in ("k", "v"):
+            kv[name][:, slot, :, :n].fill_(_nar_code(kv[name]))
 
     # ------------------------------------------------------------------ run ---
     def run(self, requests: list, *, clock: Optional[Callable] = None) -> list:

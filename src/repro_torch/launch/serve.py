@@ -14,8 +14,14 @@ JSON object with a ``"kind"`` key: one ``serve/prefill`` line per request
 (its prefill time), then one ``serve/report`` (tokens/s, per-token latency
 percentiles, KV bytes per token, linear-weight bytes under the policy and
 in f32, kernel launches during the run, and the KV cache's decoded health). Runs on the CUDA device unless ``--device cpu``.
-Only the continuous mode is ported; the reference's static mode, paged
-engine and observability/fault-tolerance flags are not.
+
+``--paged`` serves through the paged prefix-sharing engine
+(``launch/paged_engine.py``): ``--page-bytes`` is a layer's K+V bytes of one
+page (the default 2,048 is one token a page at qwen2.5-14b's full width at
+p8; 32,768 is 16), ``--n-blocks`` the pool's size (default: the slot grid's
+byte budget); the report then carries ``prefix_cache``. Only the continuous
+mode is ported; the reference's static mode and observability/fault-tolerance
+flags are not.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ from repro_torch.core.pcsr import TransPolicy, parse_policy
 from repro_torch.core.policy import get_precision_policy
 from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.launch.engine import ContinuousBatchingEngine, Request, poisson_requests
+from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
 from repro_torch.models.layers import policy_weight_bytes
 from repro_torch.models.registry import build_model
 
@@ -72,9 +79,12 @@ def build_policy(policy: str = "p8-serve", precision_policy: Optional[str] = Non
 def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str] = None,
           reduced: bool = False, max_slots: int = 4, requests: int = 8, prompt_len: int = 64, gen: int = 16,
           arrival_rate: float = 0.0, temperature: float = 0.0, top_k: int = 0,
-          seed: int = 0, device="cuda", emit: Callable[[dict], None] = None) -> dict:
+          seed: int = 0, paged: bool = False, page_bytes: int = 2048,
+          n_blocks: Optional[int] = None, device="cuda",
+          emit: Callable[[dict], None] = None) -> dict:
     """Build ``arch`` from ``seed``, serve ``requests`` through the
-    continuous-batching engine and return the report (also emitted)."""
+    continuous-batching engine (the paged one with ``paged``) and return the
+    report (also emitted)."""
     emit = emit or (lambda ev: print(json.dumps(ev), flush=True))
     cfg = get_arch(arch)
     cfg = cfg.reduced() if reduced else cfg
@@ -84,8 +94,13 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
     params = model.init(seed, pol)
     weight_report = policy_weight_bytes(params, pol)
     S_max = prompt_len + gen
-    eng = ContinuousBatchingEngine(model, params, pol, max_slots=max_slots, S_max=S_max,
-                                   temperature=temperature, top_k=top_k, seed=seed)
+    common = dict(max_slots=max_slots, S_max=S_max, temperature=temperature, top_k=top_k,
+                  seed=seed)
+    if paged:
+        eng = PagedContinuousBatchingEngine(model, params, pol, page_bytes=page_bytes,
+                                            n_blocks=n_blocks, **common)
+    else:
+        eng = ContinuousBatchingEngine(model, params, pol, **common)
     # warm up (kernel builds and loads, allocator) before the serving clock
     eng.submit(Request(rid=-1, prompt=np.zeros((prompt_len,), np.int32),
                        max_new_tokens=min(3, gen)))
@@ -116,7 +131,7 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
         "policy": pol.describe(),
         "device": (torch.cuda.get_device_name(model.device)
                    if model.device.type == "cuda" else "cpu"),
-        "mode": "continuous",
+        "mode": "paged" if paged else "continuous",
         "requests": len(completions),
         "max_slots": max_slots,
         "arrival_rate": arrival_rate,
@@ -129,7 +144,7 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
         "p95_token_ms": percentile_ms(per_tok, 95),
         "p50_ttft_ms": percentile_ms([c.ttft_s for c in completions], 50),
         "kv_cache_bytes": kv_b,
-        "kv_bytes_per_token": kv_b // (max_slots * S_max),
+        "kv_bytes_per_token": kv_b // (max_slots * eng.S_max),
         **weight_report,
         "kernel_launches": launches,
         "nonfinite_logit_rows": eng.nonfinite_rows,
@@ -137,6 +152,8 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
         "sample_tokens": min(completions, key=lambda c: c.rid).tokens[:8] if completions else [],
         **kv_health(eng.cache, pol),
     }
+    if hasattr(eng, "prefix_stats"):
+        report["prefix_cache"] = eng.prefix_stats()
     emit(report)
     return report
 
@@ -152,6 +169,15 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true", help="the reduced (CI-sized) config")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching (the only ported mode)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged prefix-sharing KV cache (launch/paged_engine.py; "
+                         "rides --continuous)")
+    ap.add_argument("--page-bytes", type=int, default=2048,
+                    help="a layer's K+V bytes of one KV page (paged mode; token "
+                         "capacity follows the KV code width)")
+    ap.add_argument("--n-blocks", type=int, default=None,
+                    help="KV pool size in blocks (paged mode; default: the slot "
+                         "grid's byte budget)")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -170,12 +196,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if not args.continuous:
-        ap.error("only --continuous serving is ported")
+        ap.error("only --continuous serving is ported" + (
+            "; --paged rides the continuous-batching engine: add --continuous"
+            if args.paged else ""))
     serve(args.arch, policy=args.policy, precision_policy=args.precision_policy,
           reduced=args.reduced, max_slots=args.max_slots,
           requests=args.requests, prompt_len=args.prompt_len, gen=args.gen,
           arrival_rate=args.arrival_rate, temperature=args.temperature, top_k=args.top_k,
-          seed=args.seed, device=args.device)
+          seed=args.seed, paged=args.paged, page_bytes=args.page_bytes,
+          n_blocks=args.n_blocks, device=args.device)
 
 
 if __name__ == "__main__":

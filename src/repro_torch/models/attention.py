@@ -5,7 +5,8 @@ KV-cache transprecision: when ``policy.kv_cache`` is a posit format the cache
 holds uint8/uint16 codes. Prefill encodes its K/V block on write (the encode
 kernel); a decode step hands its new K/V row to the decode-attention kernel,
 which encodes and writes it and attends over the codes, decoding tile by
-tile. Cache layout ``(B, Hkv, S, hd)``.
+tile. Cache layout ``(B, Hkv, S, hd)``; a paged pool is ``(N, Hkv, bt, hd)``
+read through a block table (``decode_attention_step_paged``).
 
 The port updates the cache in place (the reference returns new arrays).
 """
@@ -159,6 +160,34 @@ def resolve_attn_impl(policy: TransPolicy, cfg: AttnCfg, *, rolling: bool = Fals
     return "kernel"
 
 
+def _decode_attention(params: dict, cfg: AttnCfg, x_t: torch.Tensor, pos: torch.Tensor,
+                      policy: TransPolicy, attend, *, rolling: bool = False, rope=None,
+                      residual: Optional[torch.Tensor] = None,
+                      path: str = "attn") -> torch.Tensor:
+    """A decode step's attention around its kernel call: the q/k/v linears,
+    RoPE at ``pos`` (``rope`` the step's tables, made here when None), then
+    ``attend(q (B, H, hd), k_new (B, Hkv, hd), v_new, es, kv_bits)``, all
+    float32, for the (B, H, hd) output, and wo with ``residual`` fused."""
+    B = x_t.shape[0]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    if resolve_attn_impl(policy, cfg, rolling=rolling) != "kernel":
+        raise NotImplementedError("only the decode-attention kernel path is ported")
+    q = _split_heads(apply_linear(params["wq"], x_t, policy, path=f"{path}/wq"), H, hd)
+    kn = _split_heads(apply_linear(params["wk"], x_t, policy, path=f"{path}/wk"), Hkv, hd)
+    vn = _split_heads(apply_linear(params["wv"], x_t, policy, path=f"{path}/wv"), Hkv, hd)
+    if cfg.use_rope:
+        if rope is None:
+            rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
+        q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
+    fmt = policy.kv_cache
+    es, kv_bits = (fmt.es, fmt.nbits) if fmt is not None else (0, 0)
+    out = attend(q.reshape(B, H, hd).to(torch.float32).contiguous(),
+                 kn.reshape(B, Hkv, hd).to(torch.float32).contiguous(),
+                 vn.reshape(B, Hkv, hd).to(torch.float32).contiguous(), es, kv_bits)
+    return apply_linear(params["wo"], out.reshape(B, 1, H * hd).to(x_t.dtype), policy,
+                        residual=residual, path=f"{path}/wo")
+
+
 def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: dict,
                           pos: torch.Tensor, policy: TransPolicy, *,
                           rolling: bool = False, rope=None,
@@ -173,28 +202,54 @@ def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: 
     step's ``rope_tables`` of ``pos`` (shared by every layer; made here when
     None); ``residual`` fuses into the wo epilogue; ``path`` names the
     projections for a per-layer policy. Returns (y, cache)."""
-    B = x_t.shape[0]
-    H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
-    if resolve_attn_impl(policy, cfg, rolling=rolling) != "kernel":
-        raise NotImplementedError("only the decode-attention kernel path is ported")
-    q = _split_heads(apply_linear(params["wq"], x_t, policy, path=f"{path}/wq"), H, hd)
-    kn = _split_heads(apply_linear(params["wk"], x_t, policy, path=f"{path}/wk"), Hkv, hd)
-    vn = _split_heads(apply_linear(params["wv"], x_t, policy, path=f"{path}/wv"), Hkv, hd)
-    if cfg.use_rope:
-        if rope is None:
-            rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
-        q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
-    fmt = policy.kv_cache
-    es, kv_bits = (fmt.es, fmt.nbits) if fmt is not None else (0, 0)
-    # a slot never holds more than S_cache valid positions (recycled engine
-    # slots would otherwise grow `len` between eviction and reuse)
-    cache["len"].add_(1).clamp_(max=cache["k"].shape[2])
-    # the row's encode, its cache write and attention in one launch
-    out = attn_ops.decode_attention_append(
-        q.reshape(B, H, hd).to(torch.float32).contiguous(),
-        kn.reshape(B, Hkv, hd).to(torch.float32).contiguous(),
-        vn.reshape(B, Hkv, hd).to(torch.float32).contiguous(), cache["k"], cache["v"],
-        pos, cache["len"], es, kv_bits=kv_bits)
-    y = apply_linear(params["wo"], out.reshape(B, 1, H * hd).to(x_t.dtype), policy,
-                     residual=residual, path=f"{path}/wo")
+
+    def attend(q, kn, vn, es, kv_bits):
+        # a slot never holds more than S_cache valid positions (recycled engine
+        # slots would otherwise grow `len` between eviction and reuse)
+        cache["len"].add_(1).clamp_(max=cache["k"].shape[2])
+        # the row's encode, its cache write and attention in one launch
+        return attn_ops.decode_attention_append(q, kn, vn, cache["k"], cache["v"], pos,
+                                                cache["len"], es, kv_bits=kv_bits)
+
+    y = _decode_attention(params, cfg, x_t, pos, policy, attend, rolling=rolling, rope=rope,
+                          residual=residual, path=path)
     return y, cache
+
+
+def init_paged_kv_pool(n_blocks: int, block_tokens: int, cfg: AttnCfg, policy: TransPolicy, *,
+                       device="cpu", n_layers: Optional[int] = None) -> dict:
+    """A paged KV pool ``(n_blocks, Hkv, block_tokens, hd)`` (stacked on a
+    leading layer axis with ``n_layers``), zeros, with ``init_kv_cache``'s
+    dtype rule. The per-slot lengths live with the engine (``cache["lens"]``)
+    and the block table is shared by every layer."""
+    lead = () if n_layers is None else (n_layers,)
+    shape = lead + (n_blocks, cfg.n_kv, block_tokens, cfg.head_dim)
+    dt = _cache_dtype(policy)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def decode_attention_step_paged(params: dict, cfg: AttnCfg, x_t: torch.Tensor, pool: dict,
+                                block_table: torch.Tensor, lens: torch.Tensor,
+                                policy: TransPolicy, *, lengths: torch.Tensor, rope=None,
+                                residual: Optional[torch.Tensor] = None,
+                                path: str = "attn") -> tuple:
+    """One decode step over a paged KV pool: ``decode_attention_step`` with the
+    layer's cache swapped for ``pool`` (``{"k", "v"}``, ``(N, Hkv, bt, hd)``)
+    and the slot grid's block table ``(B, W)``. ``lens`` (B,) is each row's
+    write index (its valid length before this token); the new K/V row goes to
+    block ``block_table[b, lens[b] // bt]`` at offset ``lens[b] % bt`` and the
+    row attends to ``lengths`` (``lens + 1``, made once a step) positions, in
+    one launch of the paged kernel (``decode_attention_append_paged``). The
+    engine makes the write target a private block before the step
+    (copy-on-write), so no two rows write one page. ``rope``, ``residual`` and
+    ``path`` are ``decode_attention_step``'s. Returns (y, pool)."""
+
+    def attend(q, kn, vn, es, kv_bits):
+        return attn_ops.decode_attention_append_paged(q, kn, vn, pool["k"], pool["v"],
+                                                      block_table, lens, lengths, es,
+                                                      kv_bits=kv_bits)
+
+    y = _decode_attention(params, cfg, x_t, lens, policy, attend, rope=rope, residual=residual,
+                          path=path)
+    return y, pool

@@ -4,6 +4,8 @@
   params = model.init(seed, policy)        # quantized layer by layer under a posit policy
   logits, cache = model.prefill(params, tokens, policy, S_max=...)
   logits, cache = model.decode_step(params, tokens_t, cache, policy)
+  cache = model.init_paged_cache(B, n_blocks, block_tokens, table_width, policy)
+  logits, cache = model.decode_step_paged(params, tokens_t, cache, policy)
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ class Model:
     init_cache: Callable      # (B, S_max, policy) -> cache
     prefill: Callable         # (params, tokens, policy, S_max=None) -> (logits, cache)
     decode_step: Callable     # (params, tokens_t, cache, policy) -> (logits, cache)
+    # paged serving: (B, n_blocks, block_tokens, table_width, policy) -> cache
+    init_paged_cache: Callable = None
+    decode_step_paged: Callable = None    # decode_step over the paged cache
 
 
 def build_model(cfg: ModelCfg, device="cuda") -> Model:
@@ -47,4 +52,8 @@ def build_model(cfg: ModelCfg, device="cuda") -> Model:
         prefill=lambda p, tokens, pol, **kw: transformer.prefill(p, tokens, cfg, pol, **kw),
         decode_step=lambda p, tok, cache, pol: transformer.decode_step(p, tok, cache, cfg,
                                                                        pol),
+        init_paged_cache=lambda B, n_blocks, bt, width, pol: transformer.init_paged_cache(
+            cfg, B, n_blocks, bt, width, pol, device=dev),
+        decode_step_paged=lambda p, tok, cache, pol: transformer.decode_step_paged(
+            p, tok, cache, cfg, pol),
     )

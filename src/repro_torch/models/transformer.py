@@ -1,5 +1,6 @@
 """Decoder-only LM assembly for the dense family: init, cache init, prefill
-and decode_step (the serving path).
+and decode_step (the serving path), and the paged serving cache and step
+(``init_paged_cache``, ``decode_step_paged``).
 
 Parameters: ``{"embed": {"table"}, "blocks": [per-layer dicts], "final_norm",
 "lm_head"}``; the reference stacks the layers on a leading axis instead
@@ -86,15 +87,11 @@ def _layer_cache(kv: dict, i: int) -> dict:
     return {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
 
 
-def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
-                policy: TransPolicy) -> tuple:
-    """One token for the whole batch. token_t: (B,) int -> logits (B, V).
-
-    Every row writes at its own position ``cache["lens"]`` and masks by its
-    layer's ``len``. The cache is updated in place and returned: every
-    tensor of it, ``lens`` and ``pos`` included, stays the same tensor, so a
-    CUDA graph of the step reads and writes the same buffers at each replay.
-    """
+def _decode_layers(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
+                   policy: TransPolicy, attend) -> tuple:
+    """The decode step's body, shared by the slot grid and the paged pool:
+    ``attend(layer_params, acfg, h, i, rope, residual)`` is layer i's
+    attention with the residual fused into wo."""
     _require_dense(cfg)
     check_ported(policy)
     lens = cache["lens"]
@@ -104,8 +101,7 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
     for i, p in enumerate(params["blocks"]):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the block residuals fuse into the wo and down projections' epilogues
-        x, _ = attn.decode_attention_step(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
-                                          lens, policy, rope=rope, residual=x, path="attn")
+        x = attend(p["attn"], acfg, h, i, rope, x)
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
     h = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -113,6 +109,63 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
     cache["pos"] += 1
     lens.add_(1)          # in place, after its last use in the step
     return logits, cache
+
+
+def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
+                policy: TransPolicy) -> tuple:
+    """One token for the whole batch. token_t: (B,) int -> logits (B, V).
+
+    Every row writes at its own position ``cache["lens"]`` and masks by its
+    layer's ``len``. The cache is updated in place and returned: every
+    tensor of it, ``lens`` and ``pos`` included, stays the same tensor, so a
+    CUDA graph of the step reads and writes the same buffers at each replay.
+    """
+    lens = cache["lens"]
+
+    def attend(p, acfg, h, i, rope, residual):
+        return attn.decode_attention_step(p, acfg, h, _layer_cache(cache["kv"], i), lens,
+                                          policy, rope=rope, residual=residual,
+                                          path="attn")[0]
+
+    return _decode_layers(params, token_t, cache, cfg, policy, attend)
+
+
+def init_paged_cache(cfg: ModelCfg, B: int, n_blocks: int, block_tokens: int,
+                     table_width: int, policy: TransPolicy, *, device="cuda") -> dict:
+    """Paged serving cache: one block pool a layer, stacked,
+    ``kv.k/v: (L, n_blocks, Hkv, block_tokens, hd)``; a block table
+    ``(B, table_width)`` int32 shared by every layer, sentinel-filled
+    (``n_blocks``: every entry empty until the engine installs real tables,
+    so writes drop and reads are zeros); and the slot grid's ``lens``/``pos``."""
+    _require_dense(cfg)
+    device = resolve_device(device)
+    return {
+        "kv": attn.init_paged_kv_pool(n_blocks, block_tokens, attn_cfg(cfg), policy,
+                                      device=device, n_layers=cfg.n_layers),
+        "table": torch.full((B, table_width), n_blocks, dtype=torch.int32, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "lens": torch.zeros((B,), dtype=torch.int32, device=device),
+    }
+
+
+def decode_step_paged(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
+                      policy: TransPolicy) -> tuple:
+    """``decode_step`` over the paged pool: the same layer body (RoPE tables,
+    fused residuals), each layer's attention through its pool and the shared
+    block table: row b writes at ``table[b, lens[b] // bt]``, offset
+    ``lens[b] % bt``, and attends to ``lens[b] + 1`` positions. Every tensor
+    of the cache (the table, ``lens``, ``pos``, the pools) stays the same
+    tensor, updated in place."""
+    lens, table, kv = cache["lens"], cache["table"], cache["kv"]
+    lengths = lens + 1
+
+    def attend(p, acfg, h, i, rope, residual):
+        return attn.decode_attention_step_paged(p, acfg, h, {"k": kv["k"][i], "v": kv["v"][i]},
+                                                table, lens, policy, rope=rope,
+                                                residual=residual, lengths=lengths,
+                                                path="attn")[0]
+
+    return _decode_layers(params, token_t, cache, cfg, policy, attend)
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPolicy,

@@ -11,7 +11,8 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import EagerTwin, assert_bit_identical, served_recorded
+from chip_smoke import (EagerTwin, assert_bit_identical, attn_inputs, eager_twin, live_codes,
+                        page_cache, prefix_requests, serve_recorded_timed, served_recorded)
 from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.core.pack import pack_p8, unpack_p8
@@ -31,6 +32,7 @@ from repro_torch.kernels.posit_softmax.ops import softmax
 from repro_torch.kernels.posit_softmax.ref import posit_softmax_ref
 from repro_torch.launch.engine import (CapturedStep, ContinuousBatchingEngine, Request,
                                        poisson_requests)
+from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
 from repro_torch.models.registry import build_model
 
 pytestmark = pytest.mark.cuda
@@ -623,3 +625,105 @@ def test_graph_engine_apply_policy_mid_flight_matches_its_eager_twin(dev, swap):
     assert eng.policy is new and got[0] == want[0]
     assert len(got[1]) == eng.steps == 8
     assert_bit_identical(got[1], want[1], "graph against eager")
+
+
+@pytest.mark.parametrize("kv_bits", [8, 16])
+@pytest.mark.parametrize("bt", [1, 3, 16])
+def test_paged_attention_kernel_matches_plain(dev, kv_bits, bt):
+    """The paged mode over shuffled pools with sentinel tails and NaR-filled
+    recycled pages: bit for bit the dense kernel on the de-paged cache,
+    within 4 (d + 2S) u max|V| of the paged plain version, a length-0 row
+    zeros; the paged append's codes bit for bit the encode kernel + the row
+    write, its output the unfused paged call's."""
+    d, Hq, Hkv = 64, 10, 2
+    W = -(-700 // bt)
+    S = W * bt
+    lengths = (0, 1, 517, S)
+    q, k, v, lens = attn_inputs(kv_bits, Hq=Hq, Hkv=Hkv, d=d, S=S, lengths=lengths,
+                                seed=bt + kv_bits)
+    kp, vp, table = page_cache(k, v, lengths, bt, seed=bt)
+    got = attn_ops.decode_attention_paged(q, kp, vp, table, lens, 0, kv_bits=kv_bits)
+    kd, vd = attn_ref.depage(kp, table), attn_ref.depage(vp, table)
+    dense = attn_ops.decode_attention(q, kd, vd, lens, 0, kv_bits=kv_bits)
+    assert torch.equal(got.view(torch.int32), dense.view(torch.int32))
+    want = attn_ref.posit_decode_attention_paged_ref(q, kp, vp, table, lens, 0, kv_bits=kv_bits)
+    vmax = float(codec_ref.decode_ref(live_codes(vd, lens), 0, nbits=kv_bits).abs().max())
+    assert float((got - want).abs().max()) <= 4 * (d + 2 * S) * U * vmax
+    assert bool((got[0] == 0).all())
+    pos = torch.tensor([0, 1, 516, S], dtype=torch.int32, device=dev)
+    kn, vn = (torch.randn((4, Hkv, d), device=dev) for _ in range(2))
+    k_want, v_want = kp.clone(), vp.clone()
+    for pool, new in ((k_want, kn), (v_want, vn)):
+        attn_ref.store_row_paged(pool, codec_ops.encode(new, 0, nbits=kv_bits), table, pos, 0,
+                                 kv_bits=0)
+    out = attn_ops.decode_attention_append_paged(q, kn, vn, kp, vp, table, pos, lens, 0,
+                                                 kv_bits=kv_bits)
+    assert torch.equal(kp, k_want) and torch.equal(vp, v_want)
+    again = attn_ops.decode_attention_paged(q, kp, vp, table, lens, 0, kv_bits=kv_bits)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+def _paged_model(dev):
+    """qwen2.5-14b at full width, two layers deep, P8_SERVE, seed 0."""
+    cfg = dataclasses.replace(get_arch("qwen2.5-14b"), n_layers=2)
+    model = build_model(cfg)
+    return cfg, model, model.init(0, P8_SERVE)
+
+
+def test_paged_engine_on_card_matches_grid_and_eager_twin(dev):
+    """Prefix-sharing requests (8 of 64 tokens at 90% overlap, 4 slots):
+    the paged engine (pages of 16) serves the slot grid's tokens and every
+    sampled logits row bit for bit, replays its captured step bit for bit
+    like its eager twin, and launches only the paged attention kernel."""
+    cfg, model, params = _paged_model(dev)
+    reqs = lambda: prefix_requests(8, 64, 0.9, 8, cfg.vocab)  # noqa: E731
+    kw = dict(max_slots=4, S_max=72)
+    runs = {}
+    for name, make in (
+            ("grid", lambda: ContinuousBatchingEngine(model, params, P8_SERVE, **kw)),
+            ("paged", lambda: PagedContinuousBatchingEngine(model, params, P8_SERVE,
+                                                            page_bytes=32768, **kw)),
+            ("eager", lambda: eager_twin(PagedContinuousBatchingEngine)(
+                model, params, P8_SERVE, page_bytes=32768, **kw))):
+        eng = make()
+        assert isinstance(eng._decode, CapturedStep) == (name != "eager")
+        kernels.reset_launches()
+        runs[name] = serve_recorded_timed(eng, reqs())
+        runs[name]["launches"] = dict(kernels.LAUNCHES)
+    for name in ("paged", "eager"):
+        assert runs[name]["tokens"] == runs["grid"]["tokens"]
+        assert_bit_identical(runs[name]["seen"], runs["grid"]["seen"], name)
+        assert runs[name]["launches"]["posit_attention"] == 0
+        assert runs[name]["prefix_cache"]["hits"] == 7
+    assert runs["paged"]["launches"] == runs["eager"]["launches"]
+    assert runs["paged"]["launches"]["posit_attention_paged"] == \
+        runs["paged"]["decode_steps"] * cfg.n_layers
+
+
+def test_paged_inject_nar_stays_in_its_slot_on_card(dev):
+    """Two requests sharing a 2-page prefix; NaR injected into slot 0's
+    tail: slot 0's logits go non-finite, slot 1 serves the tokens it serves
+    without the fault, and the shared page keeps its codes."""
+    cfg, model, params = _paged_model(dev)
+    a, b = (r.prompt for r in prefix_requests(2, 40, 0.8, 6, cfg.vocab))
+    eng = PagedContinuousBatchingEngine(model, params, P8_SERVE, max_slots=2, S_max=48,
+                                        page_bytes=32768)
+    runs = []
+    for fault in (False, True):
+        eng.reset()
+        for i, p in enumerate((a, b)):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=6))
+        eng.admit()
+        shared = eng.manager.tables[0][0]
+        assert eng.manager.tables[1][0] == shared
+        kept = eng.cache["kv"]["k"][:, shared].clone()
+        if fault:
+            eng.inject_nar_into(0, 3)
+        while eng.active.any():
+            eng.step()
+        torch.cuda.synchronize()
+        assert torch.equal(eng.cache["kv"]["k"][:, shared], kept)
+        runs.append(({c.rid: c.tokens for c in eng.completions}, eng.nonfinite_rows))
+    (clean, bad0), (faulted, bad1) = runs
+    assert bad0 == 0 and bad1 > 0
+    assert faulted[1] == clean[1]

@@ -23,6 +23,7 @@ from repro_torch.convert import params_from_jax
 from repro_torch.core.device import resolve_device
 from repro_torch.core.pack import pack_p8
 from repro_torch.core.types import F32, P8_0
+from repro_torch.kernels.posit_attention import ops as attn_ops
 from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.kernels.posit_gemm.ops import posit_gemm
 from repro_torch.kernels.posit_quire_gemm.ops import posit_quire_gemm
@@ -60,6 +61,7 @@ def test_scan_covers_the_package():
     assert {"codec.py", "quire.py", "ops.py", "engine.py", "serve.py", "chip_smoke.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"lut.py", "pack.py", "policy.py"} <= names
+    assert {"src/repro_torch/core/paged_kv.py", "src/repro_torch/launch/paged_engine.py"} <= rel
     for kernel in ("posit_quire_gemm", "posit_softmax"):
         for mod in ("__init__.py", "ops.py", "ref.py"):
             assert f"src/repro_torch/kernels/{kernel}/{mod}" in rel
@@ -107,11 +109,34 @@ def test_cpu_tensors_take_the_plain_version():
     for cd in (torch.bfloat16, torch.float32):   # both packed variants' routes
         posit_gemm(w.float(), pack_p8(w), (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
                    compute_dtype=cd, b_packed=True)
+    pool = codes.reshape(4, 1, 1, 16).contiguous()            # (N, Hkv, bt, d)
+    table = torch.tensor([[0, 2], [4, 1]], dtype=torch.int32)
+    q, lens = torch.randn(2, 2, 16), torch.tensor([1, 2], dtype=torch.int32)
+    attn_ops.decode_attention_paged(q, pool, pool, table, lens, 0, kv_bits=8)
+    attn_ops.decode_attention_append_paged(q, torch.randn(2, 1, 16), torch.randn(2, 1, 16),
+                                           pool.clone(), pool.clone(), table, lens, lens + 1, 0,
+                                           kv_bits=8)
     assert kernels.LAUNCHES == before
     assert set(kernels.LAUNCHES) == {"posit_decode", "posit_encode", "posit_gemm",
                                      "posit_gemm_packed", "posit_gemm_packed_fma",
                                      "posit_gemm_p16", "posit_attention",
-                                     "posit_quire_gemm", "posit_softmax"}
+                                     "posit_attention_paged", "posit_quire_gemm",
+                                     "posit_softmax"}
+
+
+def test_paged_entry_points_default_to_cuda():
+    """The paged cache and the paged serve default to the CUDA device; without
+    CUDA they raise instead of running on the CPU."""
+    assert inspect.signature(transformer.init_paged_cache).parameters["device"].default == "cuda"
+    assert inspect.signature(serve_mod.serve).parameters["paged"].default is False
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    cfg = get_arch("qwen2.5-14b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_paged_cache(cfg, 2, 8, 16, 4, P8_SERVE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_mod.serve("qwen2.5-14b", reduced=True, requests=1, prompt_len=4, gen=2,
+                        paged=True)
 
 
 def test_wrappers_refuse_mixed_devices():
