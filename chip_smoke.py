@@ -93,6 +93,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      and no split-K epilogue kernel; the quire step one
      kernel a quire GEMM call, no readout or split-sum kernel), with the
      quire step's share of per-product-branch products;
+  5t. the training path (``repro_torch.launch.train``), after phase 5's
+     decode profiles: (a) reduced qwen2.5-14b and phi3-mini-3.8b under
+     ``none`` and ``p16-train``, three train steps on the card against the
+     same on the CPU, each step from the card's state: the loss within
+     1e-5 relative, every gradient leaf within 1e-4 of its largest
+     magnitude, the update on the card's gradients within 8 f32 ulps, p16
+     moment codes within 1 code (``check_train_reduced``); (b) the float
+     linear's backward (``FloatLinear``: the GEMM kernel forward,
+     torch.matmul backward) at M = 4,096 and phi3's q/o, gate/up (silu),
+     down and lm_head shapes, f32 and bf16 compute, y, dx, dw and db within
+     stated bounds of a float64 autograd (``check_linear_backward``); (c)
+     ``train.main`` at phi3-mini-3.8b's full width and 16 of its 32 layers,
+     8 x 512 tokens a step, with the launch counts set to 0 just before and
+     read just after: ``p16-train`` for 6 steps (every loss finite, the
+     last below the first; one more step with every codec launch of layer
+     0's straight-through weights and of lm_head's moments bit for bit the
+     plain codec's, one with no CPU tensor holding data and no host sync on
+     its path) and ``none`` for 3, each with one step profiled (its
+     launches the run's a step): a ``train_path`` line a policy (losses,
+     step wall and device time, idle share, tokens/s, peak memory,
+     launches and device ms a step of ``posit_gemm``, ``posit_encode``,
+     ``posit_decode`` and the backward's products) (``run_train_path``);
   6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call; the GEMM also at
      every decode and prefill (M = 64) shape of qwen2.5-14b, its packed
@@ -104,7 +126,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      the paged kernel read cold at the paged path's 16-slot step (and there
      held to its plain version within phase 4's limits) and at S = 4,096
      with bt 16 and 1 beside the dense kernel on the same codes
-     (``paged_attention_timings``).
+     (``paged_attention_timings``); the training path's GEMM (float B, M =
+     4,096, phi3's shapes, f32 and bf16 compute) beside torch.matmul, and
+     the codec at 32064 x 3072 p16_1 (``train_timings``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
@@ -1535,6 +1559,7 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
             "launches_all_kernels_per_step": sum(c for _, _, c in by_name) / steps,
             "quire_readout_kernels_per_step": quire_readouts / steps,
             "quire_per_product_share": shares,
+            "kernel_counts": {n: c for n, _, c in by_name},
             "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
             "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
                      c / steps} for n, us, c in by_name[:14]]}
@@ -1601,10 +1626,14 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     assert graph["launches_per_step"] == eager["launches_per_step"]
     # the profiler reports the kernels inside a graph launch by name; now and
     # then it loses a kernel's record (a fraction of a kernel a step)
+    gc, ec = graph["kernel_counts"], eager["kernel_counts"]
     assert abs(graph["launches_all_kernels_per_step"]
                - eager["launches_all_kernels_per_step"]) <= 1, \
         (f"{arch.name}: the profiler saw {graph['launches_all_kernels_per_step']} kernels a "
-         f"graph step, {eager['launches_all_kernels_per_step']} an eager one")
+         f"graph step, {eager['launches_all_kernels_per_step']} an eager one; rows that "
+         "differ (graph, eager calls in the window): "
+         + str({n[:80]: (gc.get(n, 0), ec.get(n, 0)) for n in set(gc) | set(ec)
+                if gc.get(n, 0) != ec.get(n, 0)}))
     out = dict(graph, quire_per_product_share=eager["quire_per_product_share"], eager=eager)
     out["graph_vs_eager"] = {
         "decode_steps_compared": len(g_seen),
@@ -1630,7 +1659,7 @@ def graph_line(path: str, prof: dict) -> dict:
 
 def profile_log(prof: dict) -> dict:
     """A profile's log line: everything but the kernel tables and the twin."""
-    return {k: v for k, v in prof.items() if k not in ("top", "eager")}
+    return {k: v for k, v in prof.items() if k not in ("top", "eager", "kernel_counts")}
 
 
 def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0,
@@ -1674,6 +1703,535 @@ def quire_step_share(eng) -> dict:
     finally:
         quire_ops.posit_quire_gemm = kernel
     return dict(seen, share=seen["per_product"] / max(1, seen["products"]))
+
+
+# ------------------------------------------------------------ training ----
+# (the training modules are imported inside these functions: kernel_timings.py
+# imports this file with older packages, which have none)
+
+# the full-width train path: phi3-mini-3.8b, 16 of its 32 layers, 8 x 512 tokens a step
+TRAIN_CFG = dataclasses.replace(PHI3, n_layers=16)
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_M = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_ARGV = ("--arch", PHI3.name, "--layers", str(TRAIN_CFG.n_layers), "--batch",
+              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1", "--seed", "0")
+# phi3's linear shapes (K, N) with the activation fused in: q/k/v/o, gate
+# (silu; up the same shape without), down and lm_head (one loss chunk: S 512
+# is below LOSS_CHUNK, so the head runs at all M rows)
+PHI3_TRAIN_LINEARS = ((3072, 3072, "none"), (3072, 8192, "silu"), (8192, 3072, "none"),
+                      (3072, 32064, "none"))     # ... and lm_head
+ULP = 2.0 ** -23                        # f32 spacing at 1
+
+
+def _leaf_items(tree, path=""):
+    """(path, leaf) of a port tree in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaf_items(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_items(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def check_train_reduced(steps: int = 3, device=DEV) -> dict:
+    """(a) Reduced qwen2.5-14b and phi3-mini-3.8b under ``none`` and
+    ``p16-train``: three train steps on the card against the same on the
+    CPU. Each step starts both from the card's state and batch (copied to
+    the CPU), so the checks hold one step each and do not compound:
+    - the loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+      largest magnitude (f32 products and sums in another order, the GEMM
+      kernel's among them);
+    - the update, both sides from the card's gradients: AdamW divides the
+      first moment by the root of the second, so a gradient element at the
+      level of summation noise (a sum that cancels) would turn the two
+      sides' noise into steps of up to lr apart; on the same gradients the
+      update is elementwise f32 arithmetic, and every parameter and f32
+      moment leaf is held within 8 f32 ulps of the leaf's largest magnitude
+      (``b ** count``, the clip norm's sum order), p16 moment codes within 1
+      code, and the moment each stores (decoded code plus error-feedback
+      residual) within 8 ulps of the leaf's largest magnitude."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    res, worst = [], {"loss_rel": 0.0, "grad_rel": 0.0, "param_ulps": 0.0, "moment_ulps": 0.0,
+                      "code_diff": 0}
+
+    def cpu(tree):
+        return tree_map(lambda t: t.detach().cpu().clone(), tree)
+
+    for arch in (QWEN, PHI3):
+        cfg = arch.reduced()
+        for spec in ("none", "p16-train"):
+            pol = parse_policy(spec)
+            opt_cfg = AdamWConfig(moment_fmt=pol.optimizer)
+            models = {d: build_model(cfg, device=d) for d in (device, "cpu")}
+            tsteps = {d: make_train_step(models[d], pol, opt_cfg, warmup=1, total_steps=steps)
+                      for d in models}
+            params = models[device].init(0)
+            opt = adamw_init(params, opt_cfg)
+            pipe = SyntheticLMPipeline(vocab=cfg.vocab, seq_len=64, global_batch=4, seed=0,
+                                       device=device)
+            losses = []
+            for i in range(steps):
+                b = pipe.batch_at(i)
+                p_c, o_c, b_c = cpu(params), cpu(opt), cpu(b)
+                lg, mg, gg = tsteps[device].loss_and_grads(params, b)
+                lc, mc, gc = tsteps["cpu"].loss_and_grads(p_c, b_c)
+                rel = abs(float(lg) - float(lc)) / abs(float(lc))
+                assert torch.isfinite(lg) and rel <= 1e-5, (cfg.name, spec, i, rel)
+                worst["loss_rel"] = max(worst["loss_rel"], rel)
+                for (path, g), c in zip(_leaf_items(gg), tree_leaves(gc)):
+                    err = float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+                    assert err <= 1e-4, (cfg.name, spec, i, path, err)
+                    worst["grad_rel"] = max(worst["grad_rel"], err)
+                params, opt, _ = tsteps[device].apply_update(params, opt, gg, i, lg, mg)
+                p_c, o_c, _ = tsteps["cpu"].apply_update(p_c, o_c, cpu(gg), i, lc, mc)
+                for (path, p), c in zip(_leaf_items(params), tree_leaves(p_c)):
+                    c = c.detach()
+                    ulps = float((p.detach().cpu() - c).abs().max()) / (
+                        ULP * max(float(c.abs().max()), 1e-30))
+                    assert ulps <= 8, (cfg.name, spec, i, path, ulps)
+                    worst["param_ulps"] = max(worst["param_ulps"], ulps)
+                _check_moments(params, opt["mu"], o_c["mu"], pol.optimizer, worst,
+                               (cfg.name, spec, i))
+                losses.append(float(lg))
+            res.append({"arch": cfg.name, "policy": spec, "losses": losses})
+    return {"runs": res, "worst": worst}
+
+
+def _check_moments(params, mu_dev, mu_cpu, fmt, worst: dict, where) -> None:
+    """The card's AdamW moments against the CPU's after one update from the
+    same state and gradients (``check_train_reduced``'s bounds)."""
+    from repro_torch.core.tree import tree_map
+
+    def leaf(_, st, st_c):
+        assert set(st) == set(st_c), where
+        for m in ("m", "v"):
+            g, c = st[m].cpu(), st_c[m]
+            if fmt is None:
+                val_g, val_c = g, c
+            else:
+                d = int((g.to(torch.int32) - c.to(torch.int32)).abs().max())
+                assert d <= 1, (where, m, d)
+                worst["code_diff"] = max(worst["code_diff"], d)
+                if "e" + m not in st:
+                    continue
+                val_g = codec_ref.decode_ref(g, fmt.es, nbits=fmt.nbits) + st["e" + m].cpu()
+                val_c = codec_ref.decode_ref(c, fmt.es, nbits=fmt.nbits) + st_c["e" + m]
+            ulps = float((val_g - val_c).abs().max()) / (ULP * max(float(val_c.abs().max()),
+                                                                    1e-30))
+            assert ulps <= 8, (where, m, ulps)
+            worst["moment_ulps"] = max(worst["moment_ulps"], ulps)
+
+    tree_map(leaf, params, mu_dev, mu_cpu)
+
+
+def check_linear_backward(M: int = TRAIN_M, device=DEV) -> dict:
+    """(b) ``FloatLinear``'s backward (the float-weight linear of the
+    training path) at M rows and phi3's q/o, gate/up (silu fused), down
+    and lm_head shapes, under f32 and bf16 compute, against a float64
+    autograd of the same function on the operands as the kernel sees them
+    (x and w rounded to the compute dtype). With u = 2^-24, z the pre-activation, |.|
+    elementwise and @ the product of absolute values:
+    - z, in the kernel's forward and recomputed: e_z = 2*K*u*(|x|@|w|) +
+      2*u*|b|; the forward's y = act(z) + residual within e_z (1.1*e_z
+      under silu, |silu'| <= 1.1) + 2*u*|y|;
+    - dz = dy * act'(z): e_dz = 0.5*|dy|*e_z (silu'' <= 0.5) + 4*u*|dz|,
+      0 without an activation;
+    - dx: 2*N*u*(|dz|@|w^T|) + e_dz@|w^T|;
+    - dw: e_dw = 2*M*u*(|x^T|@|dz|) + |x^T|@e_dz, plus 2^-8*(|dw| + e_dw)
+      when dw is rounded to bf16 (w's dtype under bf16 compute);
+    - db: 2*M*u*sum|dz| + sum e_dz; dresidual: dy exactly."""
+    from repro_torch.core.dot import _apply_activation
+    from repro_torch.kernels.posit_gemm.ops import float_linear
+
+    u = 2.0 ** -24
+    cases = []
+    for K, N, act in PHI3_TRAIN_LINEARS:
+        g = gen(40) if device == DEV else torch.Generator().manual_seed(40)
+        x = torch.randn((M, K), generator=g, device=device)
+        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+        b = torch.randn((N,), generator=g, device=device) * 0.1
+        r = torch.randn((M, N), generator=g, device=device)
+        dy = torch.randn((M, N), generator=g, device=device)
+        for cd in (torch.float32, torch.bfloat16):
+            xs = x.clone().requires_grad_(True)
+            ws = w.to(cd).clone().requires_grad_(True)
+            bs, rs = b.clone().requires_grad_(True), r.clone().requires_grad_(True)
+            y = float_linear(xs, ws, compute_dtype=cd, bias=bs, residual=rs, activation=act)
+            y.backward(dy)
+            x64 = x.to(cd).double().requires_grad_(True)
+            w64 = w.to(cd).double().requires_grad_(True)
+            b64 = b.double().requires_grad_(True)
+            z64 = x64 @ w64 + b64
+            (_apply_activation(z64, act) + r.double()).backward(dy.double())
+            zz = z64.detach().requires_grad_(True)
+            dz64 = dy.double() if act == "none" else torch.autograd.grad(
+                _apply_activation(zz, act), zz, dy.double())[0]
+            with torch.no_grad():
+                ax, aw = x64.detach().abs(), w64.detach().abs()
+                e_z = 2 * K * u * (ax @ aw) + 2 * u * b64.detach().abs()
+                e_dz = (torch.zeros_like(e_z) if act == "none"
+                        else 0.5 * dy.double().abs() * e_z + 4 * u * dz64.abs())
+                adz = dz64.abs()
+                lim_dx = 2 * N * u * (adz @ aw.T) + e_dz @ aw.T
+                lim_dw = 2 * M * u * (ax.T @ adz) + ax.T @ e_dz
+                if cd == torch.bfloat16:
+                    lim_dw = lim_dw + 2.0 ** -8 * (w64.grad.abs() + lim_dw)
+                lim_db = 2 * M * u * adz.sum(0) + e_dz.sum(0)
+                y64 = _apply_activation(z64.detach(), act) + r.double()
+                lim_y = (1.1 if act == "silu" else 1.0) * e_z + 2 * u * y64.abs()
+                ratios = {}
+                for name, got, want, lim in (("y", y.detach(), y64, lim_y),
+                                             ("dx", xs.grad, x64.grad, lim_dx),
+                                             ("dw", ws.grad, w64.grad, lim_dw),
+                                             ("db", bs.grad, b64.grad, lim_db)):
+                    err = (got.double() - want).abs()
+                    ratios[name] = float((err / lim.clamp_min(1e-300)).max())
+                    assert ratios[name] <= 1.0, (K, N, act, str(cd), name, ratios[name])
+                assert torch.equal(rs.grad, dy), "dresidual is not dy"
+            cases.append({"K": K, "N": N, "activation": act,
+                          "compute": str(cd).split(".")[-1],
+                          "err_over_limit": ratios})
+            del xs, ws, y, x64, w64, z64, zz, dz64, y64
+        del x, w, r, dy
+        if device == DEV:
+            torch.cuda.empty_cache()
+    return {"M": M, "cases": cases,
+            "worst_err_over_limit": max(max(c["err_over_limit"].values()) for c in cases)}
+
+
+class LineClock:
+    """A stdout stand-in that keeps each complete line with the host time at
+    which its newline arrived (``train.main`` flushes a ``train/step`` line
+    after reading the step's metrics, which waits for the card)."""
+
+    def __init__(self):
+        self.lines, self._part = [], ""
+
+    def write(self, s: str) -> int:
+        now = time.perf_counter()
+        self._part += s
+        while "\n" in self._part:
+            line, self._part = self._part.split("\n", 1)
+            self.lines.append((now, line))
+        return len(s)
+
+    def flush(self) -> None:
+        pass
+
+
+class CodecCheck:
+    """Holds the codec launches of one train step against the plain codec on
+    the same inputs, bit for bit: every encode whose input is one of
+    ``ste_weights`` (the straight-through estimator's encode of a layer's
+    weights, in the forward and again under remat) and every decode of the
+    codes those wrote; every encode of an f32 tensor of ``moment_shape``
+    that is not ``skip`` (the AdamW moments of that leaf) and every decode
+    of ``moment_codes`` (the leaf's codes before the step) or of codes those
+    encodes wrote. It wraps ``codec_ops.encode`` and ``decode``, which the
+    layers and the optimizer call through the module."""
+
+    CHUNK = 1 << 24     # elements a plain-version call (bounds its int64 temporaries)
+
+    def __init__(self, ste_weights, moment_shape, skip, moment_codes):
+        self.ste = {w.data_ptr() for w in ste_weights}
+        self.moment_shape, self.skip = tuple(moment_shape), skip.data_ptr()
+        self.decode_watch = {c.data_ptr(): "moment" for c in moment_codes}
+        self.checked = {"ste_encode": 0, "ste_decode": 0, "moment_encode": 0,
+                        "moment_decode": 0}
+
+    def _same(self, kind, got, x, es, nbits):
+        ref = codec_ref.encode_ref if kind == "encode" else codec_ref.decode_ref
+        g, xin = got.reshape(-1), x.reshape(-1)
+        for i in range(0, xin.numel(), self.CHUNK):
+            want = ref(xin[i:i + self.CHUNK], es, nbits=nbits)
+            part = g[i:i + self.CHUNK]
+            if kind == "encode":
+                ok = torch.equal(part.view(torch.int16 if nbits == 16 else torch.int8),
+                                 want.view(torch.int16 if nbits == 16 else torch.int8))
+            else:
+                ok = torch.equal(part.view(torch.int32), want.view(torch.int32))
+            assert ok, f"the {kind} kernel's output differs from the plain version's"
+
+    def __enter__(self):
+        self._enc, self._dec = codec_ops.encode, codec_ops.decode
+
+        def encode(x, es, *, nbits, **kw):
+            out = self._enc(x, es, nbits=nbits, **kw)
+            ptr = x.data_ptr()
+            what = ("ste" if ptr in self.ste else
+                    "moment" if (tuple(x.shape) == self.moment_shape and ptr != self.skip
+                                 and x.dtype == torch.float32) else None)
+            if what:
+                self._same("encode", out, x, es, nbits)
+                self.checked[what + "_encode"] += 1
+                self.decode_watch[out.data_ptr()] = what
+            return out
+
+        def decode(codes, es, *, nbits, **kw):
+            out = self._dec(codes, es, nbits=nbits, **kw)
+            what = self.decode_watch.get(codes.data_ptr())
+            if what and kw.get("out_dtype", torch.float32) == torch.float32:
+                self._same("decode", out, codes, es, nbits)
+                self.checked[what + "_decode"] += 1
+            return out
+
+        codec_ops.encode, codec_ops.decode = encode, decode
+        return self
+
+    def __exit__(self, *exc):
+        codec_ops.encode, codec_ops.decode = self._enc, self._dec
+
+
+def cpu_tensor_ops(fn) -> list:
+    """Run ``fn()`` and return the aten ops on its path that touched a CPU
+    tensor holding data: any op that made one with an element, or read one
+    with a dimension (a 0-dim CPU tensor is how a Python scalar reaches an
+    op; ``torch.utils.checkpoint`` makes an empty one as its autograd
+    anchor), and every host sync (``_local_scalar_dense``); each with the
+    innermost frames of this repository's code that called it."""
+    import traceback
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves as pt_leaves
+
+    seen = []
+
+    class Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            ins = [t for t in pt_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+            outs = [t for t in pt_leaves(out) if isinstance(t, torch.Tensor)]
+            if (func is torch.ops.aten._local_scalar_dense.default
+                    or any(t.device.type == "cpu" and t.numel() > 0 for t in outs)
+                    or any(t.device.type == "cpu" and t.dim() > 0 for t in ins)):
+                frames = [f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                          for f in traceback.extract_stack()
+                          if ("repro_torch" in f.filename or "chip_smoke" in f.filename)
+                          and f.name != "__torch_dispatch__"]
+                seen.append(f"{func} at {' < '.join(reversed(frames[-4:]))}")
+            return out
+
+    with Watch():
+        fn()
+    return seen
+
+
+TRAIN_KERNELS = {
+    "posit_gemm": r"\b(tc_gemm_kernel|gemv_kernel|gemm_kernel|splitk_epilogue_kernel)\b",
+    "posit_encode": r"\bencode_kernel\b", "posit_decode": r"\bdecode_kernel\b"}
+
+
+def profile_train_step(step_fn, params, opt, batch, step: int) -> dict:
+    """One train step under torch.profiler: device ms, each port kernel's
+    calls and device ms, the backward products' (``FloatLinear.backward``'s
+    ``posit_gemm_backward`` range: torch.matmul and the activation's
+    derivative), the wrappers' launches, and the top rows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    before = dict(kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn(params, opt, batch, step)
+        torch.cuda.synchronize()
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                if kernels.LAUNCHES[k] != before[k]}
+    # the device's own records (kernels, copies, sets), one each: not the key
+    # averages, where a CPU range (the autograd Function's, the backward's
+    # annotation) would carry its kernels' time a second time
+    events = prof.events()
+    dev = [e for e in events if e.device_type != DeviceType.CPU and not e.is_user_annotation
+           and e.name not in PROFILER_ROWS]
+    out = {"device_ms": sum(e.device_time_total for e in dev) / 1e3, "kernels_per_step": len(dev),
+           "launches": launches, "kernels": {}}
+    for name, pat in TRAIN_KERNELS.items():
+        hit = [e for e in dev if re.search(pat, e.name)]
+        out["kernels"][name] = {"calls": len(hit),
+                                "device_ms": sum(e.device_time_total for e in hit) / 1e3}
+    bwd = [e for e in events if e.name == "posit_gemm_backward" and e.device_type == DeviceType.CPU]
+    out["kernels"]["backward_matmul"] = {
+        "calls": len(bwd), "device_ms": sum(e.device_time_total for e in bwd) / 1e3}
+    by_name: dict = {}
+    for e in dev:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time_total / 1e3, c + 1)
+    out["top"] = [{"name": n[:90], "device_ms": t, "calls": c}
+                  for n, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:14]]
+    return out
+
+
+def run_train_path(policy: str, steps: int, checks: bool, *, argv=TRAIN_ARGV, cfg=TRAIN_CFG,
+                   batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
+    """(c) ``repro_torch.launch.train.main`` at phi3-mini-3.8b's full width
+    and 16 of its 32 layers, batch 8 x seq 512, ``steps`` steps, the launch
+    counts set to 0 just before and read just after (the launches a step:
+    the run's less AdamW's init); the step wall times from the flushed
+    ``train/step`` lines. Then, on the state it returns and
+    the next batches: with ``checks``, one step under ``CodecCheck`` (layer
+    0's seven weights, lm_head's moments), one under ``cpu_tensor_ops``, and
+    the loss's fall over the run; then one step under the profiler. Returns
+    the ``train_path`` line."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig
+
+    argv = list(argv) + ["--policy", policy, "--steps", str(steps)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clock = LineClock()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    real_stdout, sys.stdout = sys.stdout, clock
+    try:
+        state = train.main(argv)
+    finally:
+        sys.stdout = real_stdout
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    recs = [(t, json.loads(line)) for t, line in clock.lines]
+    step_recs = [(t, r) for t, r in recs if r["kind"] == "train/step"]
+    assert [r["step"] for _, r in step_recs] == list(range(steps)), recs
+    assert recs[-1][1]["kind"] == "train/done", recs[-1]
+    losses = [r["loss"] for _, r in step_recs]
+    assert all(np.isfinite(losses)), losses
+    walls = [b[0] - a[0] for a, b in zip(step_recs, step_recs[1:])]
+    wall = statistics.median(walls)
+    pol = parse_policy(policy)
+    for name in ("posit_gemm",) + (("posit_encode", "posit_decode") if pol.weights else ()):
+        assert launches[name] > 0, f"kernel {name} was not launched on the train path"
+    if pol.weights is None:
+        assert launches["posit_encode"] == launches["posit_decode"] == 0, launches
+
+    model = build_model(cfg, device=DEV)
+    opt_cfg = AdamWConfig(moment_fmt=pol.optimizer)
+    step_fn = make_train_step(model, pol, opt_cfg, warmup=max(steps // 10, 1), total_steps=steps)
+    pipe = SyntheticLMPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0,
+                               device=DEV)
+    params, opt = state["params"], state["opt"]
+    line = {"policy": policy, "arch": cfg.name, "layers": cfg.n_layers,
+            "tokens_per_step": batch * seq, "steps": steps, "losses": losses,
+            "step_wall_ms": [w * 1e3 for w in walls], "step_wall_ms_median": wall * 1e3,
+            "first_step_s": step_recs[0][0] - t0, "tokens_per_s": batch * seq / wall,
+            "peak_memory_gb": peak / 1e9,
+            # the run's counts, AdamW's zero moments encoded at init included
+            "launches_run": {k: v for k, v in launches.items() if v}}
+    DETAILS[f"train_path_{policy}"] = line      # kept if a check below fails
+    if checks:
+        lm = params["lm_head"]["w"]
+        mu = opt["mu"]["lm_head"]["w"]
+        layer0 = [p["w"] for p in (*params["blocks"][0]["attn"].values(),
+                                   *params["blocks"][0]["mlp"].values())]
+        with CodecCheck(layer0, lm.shape, lm, (mu["m"], mu["v"])) as cc:
+            step_fn(params, opt, pipe.batch_at(steps), steps)
+            torch.cuda.synchronize()
+        assert cc.checked["ste_encode"] >= 14 and cc.checked["ste_decode"] >= 14, cc.checked
+        assert cc.checked["moment_encode"] >= 2 and cc.checked["moment_decode"] >= 4, cc.checked
+        batch = pipe.batch_at(steps + 1)
+        cpu_ops = cpu_tensor_ops(lambda: step_fn(params, opt, batch, steps + 1))
+        assert not cpu_ops, f"CPU tensors on the train step's path: {cpu_ops[:6]}"
+        assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+        line["codec_bit_exact_calls"] = cc.checked
+        line["cpu_tensor_ops"] = 0
+    # the run's launches a step: its counts less AdamW's init, which encodes
+    # both zero moments of every leaf under posit moments
+    init = {"posit_encode": 2 * len(tree_leaves(params)) if pol.optimizer else 0}
+    per_step = {k: (v - init.get(k, 0)) / steps for k, v in launches.items()
+                if v - init.get(k, 0)}
+    # device time from one more step of the same step function under the
+    # profiler (its wall time is the profiler's, so the idle share sets it
+    # against the run's median step wall); that step's launches must be the
+    # run's a step
+    prof = profile_train_step(step_fn, params, opt, pipe.batch_at(steps + 2), steps + 2)
+    assert prof["launches"] == per_step, (prof["launches"], per_step)
+    line.update(device_ms=prof["device_ms"], idle_share=1 - prof["device_ms"] / (wall * 1e3),
+                launches_per_step=per_step, kernel_per_step=prof["kernels"])
+    DETAILS[f"train_profile_{policy}"] = prof
+    return line
+
+
+def event_ms(fn, *, windows: int = 3, calls: int = 5) -> float:
+    """Time of one call of ``fn`` from CUDA events around ``calls``
+    back-to-back calls, median over ``windows``, after a warm-up call. For
+    calls of 0.1 ms and more, where the host enqueues faster than the card
+    runs: there torch.profiler has lost kernel records of cuBLAS calls (a
+    window of three 4 ms calls read 2.7 ms a call, one of a bf16 call
+    below its bound), and events see every kernel."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        per_call.append(start.elapsed_time(end) / calls)
+    return statistics.median(per_call)
+
+
+def train_timings(M: int = TRAIN_M, layers: int = 16) -> dict:
+    """The training path's kernels at its shapes. The GEMM with float B as
+    ``FloatLinear`` calls it (f32 activations, f32 out) at M rows and phi3's
+    linear shapes (lm_head included), under f32 compute (f32 B, the f32-FMA
+    tile kernel) and bf16 compute (bf16 B, the tensor cores), each beside its
+    bound, its plain version and one torch.matmul on the same dtypes (f32
+    with TF32 off; bf16 x bf16). The codec at phi3's largest weight (32064 x
+    3072): encode f32 -> p16_1 and decode p16_1 -> f32 beside the bound
+    and the plain version. Times from CUDA events (``event_ms``).
+    ``per_train_step``: the launches of that shape a p16-train step of
+    ``layers`` layers makes (every forward linear twice, remat; the codec at
+    lm_head's size: its straight-through encode and decode twice, and the
+    moments of lm_head and the embedding)."""
+    from repro_torch.core.dot import float_fmt
+
+    per_step = {(3072, 3072): 8 * layers, (3072, 8192): 4 * layers, (8192, 3072): 2 * layers,
+                (3072, 32064): 2}
+    gemm = []
+    for K, N in per_step:
+        a = torch.randn((M, K), generator=gen(50), device=DEV)
+        w = torch.randn((K, N), generator=gen(51), device=DEV) * K ** -0.5
+        for cd in (torch.float32, torch.bfloat16):
+            b = w.to(cd)
+            kw = dict(a_fmt=F32, b_fmt=float_fmt(cd), out_fmt=F32, compute_dtype=cd)
+            ms = event_ms(lambda: posit_gemm(a, b, (0, 0, 0), **kw))
+            ac = a.to(cd)
+            lib = event_ms(lambda: torch.matmul(ac, b))
+            plain = event_ms(lambda: posit_gemm_ref(a, b, (0, 0, 0), **kw), calls=2)
+            nbytes = a.numel() * 4 + b.numel() * b.element_size() + M * N * 4
+            kind = "f32" if cd == torch.float32 else "bf16"
+            b_ms, by = bound_ms(nbytes, 2.0 * M * K * N, kind)
+            gemm.append({"M": M, "K": K, "N": N, "compute": kind, "ms": ms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
+                         "kernel_over_library": ms / lib, "per_train_step": per_step[(K, N)]})
+            del b, ac
+        del a, w
+        torch.cuda.empty_cache()
+    x = torch.randn((32064, 3072), generator=gen(52), device=DEV) * 0.02
+    codes = codec_ops.encode(x, 1, nbits=16)
+    n = x.numel()
+    codec = {"shape": [32064, 3072], "fmt": "p16_1"}
+    for name, fn, ref_fn, per in (
+            ("encode", lambda: codec_ops.encode(x, 1, nbits=16),
+             lambda: codec_ref.encode_ref(x, 1, nbits=16), 6),
+            ("decode", lambda: codec_ops.decode(codes, 1, nbits=16),
+             lambda: codec_ref.decode_ref(codes, 1, nbits=16), 10)):
+        b_ms, by = bound_ms(n * 6, 0.0)
+        codec[name] = {"ms": event_ms(fn, calls=20), "plain_ms": event_ms(ref_fn, calls=2),
+                       "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                       "per_train_step": per}
+    del x, codes
+    torch.cuda.empty_cache()
+    return {"gemm": gemm, "codec": codec}
 
 
 # --------------------------------------------------------------- phase 6 ----
@@ -2260,6 +2818,17 @@ def main() -> int:
                     ("quire", q_prof), ("paged", pg_prof), ("paged16", pg16_prof)):
         log("graph_vs_eager", **graph_line(path, p))
         assert p["captured"], f"the {path} engine did not capture its decode step"
+    # phase 5t after the profiles: its 40 GB of allocations and its own
+    # profiled steps come after every decode profile's window
+    log("train_reduced", **check_train_reduced())
+    log("linear_backward", **check_linear_backward())
+    train_lines = {}
+    for policy, steps, checks in (("p16-train", 6, True), ("none", 3, False)):
+        t0 = time.perf_counter()
+        train_lines[policy] = run_train_path(policy, steps, checks)
+        log("train_path", seconds=time.perf_counter() - t0, **train_lines[policy])
+        torch.cuda.empty_cache()
+    DETAILS["train_paths"] = train_lines
 
     errs = {"posit_encode": codec_res["encode_max_abs_err"],
             "posit_decode": codec_res["decode_max_abs_err"],
@@ -2273,7 +2842,9 @@ def main() -> int:
     DETAILS["path_launches"] = {"p8_serve": launches, "mixed": m_launches,
                                 "mixed_f32": f_launches, "quire": q_launches,
                                 "long": l_launches, "softmax": sm_launches,
-                                "paged": p_launches, "paged_serve": ps_launches}
+                                "paged": p_launches, "paged_serve": ps_launches,
+                                **{"train_" + k: v["launches_run"]
+                                   for k, v in train_lines.items()}}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
                     posit_gemm_p16=m_launches["posit_gemm_p16"],
                     posit_gemm_packed_fma=f_launches["posit_gemm_packed_fma"],
@@ -2281,6 +2852,8 @@ def main() -> int:
                     posit_softmax=sm_launches["posit_softmax"],
                     posit_attention_paged=p_launches["posit_attention_paged"])
     rows = time_kernels(launches, errs)
+    DETAILS["train_timings"] = train_timings()
+    log("train_timings", **DETAILS["train_timings"])
     log("attention_paged_timings", rows=DETAILS["paged_attention_timings"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

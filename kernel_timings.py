@@ -2,7 +2,7 @@
 decode attention on one NVIDIA GPU, for this checkout's package or for
 another checkout's:
 
-    python3 kernel_timings.py [--src DIR] [--profiles | --attention]
+    python3 kernel_timings.py [--src DIR] [--profiles | --attention | --train]
 
 DIR is the ``src`` directory of another checkout, for example the parent
 commit unpacked with ``git archive`` under ``build/`` (which .gitignore
@@ -40,6 +40,13 @@ graph runs both eagerly ("captured": false).
 With --attention it builds only the codec and attention kernels and times
 only decode attention (``attention_timings`` and, where the package has it,
 ``paged_attention_timings``), for a quick before and after of that kernel.
+With --train (packages that have the training path) it builds only the
+codec and GEMM kernels and times the training path's kernels at its shapes
+(chip_smoke.py ``train_timings``: the GEMM with float B at M = 4,096 and
+phi3-mini-3.8b's linear shapes under f32 and bf16 compute beside
+torch.matmul, the codec at 32064 x 3072 p16_1) and its steps
+(``run_train_path`` without its one-step checks: phi3-mini-3.8b at full
+width, 16 layers, 8 x 512 tokens, p16-train for 6 steps and none for 3).
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -77,6 +84,15 @@ def main() -> int:
                "attention": smoke.attention_timings()}
         if paged:
             res["paged_attention"] = smoke.paged_attention_timings()
+        print(json.dumps({"timings": res}))
+        return 0
+    if "--train" in sys.argv:
+        res = {"src": str(src), "nvidia_smi": smi,
+               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm")),
+               "train": smoke.train_timings()}
+        for policy, steps in (("p16-train", 6), ("none", 3)):
+            res[f"train_path_{policy}"] = smoke.run_train_path(policy, steps, checks=False)
+            torch.cuda.empty_cache()
         print(json.dumps({"timings": res}))
         return 0
     seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_attention",

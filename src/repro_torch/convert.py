@@ -7,6 +7,12 @@ Codes stay codes and floats stay floats, with no rounding on the way: a
 stacked ``w_packed`` of packed p8 lanes, (L, ceil(K/2), N) uint16, becomes
 each layer's (ceil(K/2), N) uint16 bit for bit. The stacked ``blocks`` axis
 becomes a list of per-layer dicts.
+
+``opt_state_from_jax`` does the same for the reference's AdamW state (float
+or posit-coded moments, the error-feedback residuals, the step count), and
+``tree_to_jax`` walks back: a port tree (parameters, gradients or
+optimizer moments) in the reference's stacked numpy layout, so the two
+packages compare leaf by leaf.
 """
 from __future__ import annotations
 
@@ -15,16 +21,13 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.device import resolve_device
+from repro_torch.core.tree import tree_leaves, tree_map
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-def _tree(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _tree(v, fn) for k, v in tree.items()}
-    return fn(tree)
+    # a copy: the port updates parameters and moments in place, and the
+    # reference's arrays (read-only numpy views of its buffers) stay its own
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def params_from_jax(tree: dict, cfg: ModelCfg, device="cuda") -> dict:
@@ -33,19 +36,39 @@ def params_from_jax(tree: dict, cfg: ModelCfg, device="cuda") -> dict:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     blocks = tree["blocks"]
-    depth = {int(np.shape(a)[0]) for a in _leaves(blocks)}
+    depth = {int(np.shape(a)[0]) for a in tree_leaves(blocks)}
     if depth != {cfg.n_layers}:
         raise ValueError(f"stacked blocks have depth {sorted(depth)}, "
                          f"config {cfg.name} has {cfg.n_layers} layers")
-    out = {k: _tree(v, lambda a: _tensor(a, dev)) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_tree(blocks, lambda a, i=i: _tensor(np.asarray(a)[i], dev))
+    out = {k: tree_map(lambda a: _tensor(a, dev), v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), blocks)
                      for i in range(cfg.n_layers)]
     return out
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def opt_state_from_jax(state: dict, cfg: ModelCfg, device="cuda") -> dict:
+    """The port's AdamW state for the reference's ``{"mu", "count"}`` (numpy
+    leaves): each parameter's ``{"m", "v"[, "em", "ev"]}`` per layer, codes
+    bit for bit."""
+    return {"mu": params_from_jax(state["mu"], cfg, device=device),
+            "count": torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32,
+                                  device=resolve_device(device))}
+
+
+def tree_to_jax(tree: dict) -> dict:
+    """A port tree (parameters, gradients or ``opt["mu"]``) as the reference
+    lays it out: numpy leaves, the per-layer ``blocks`` list stacked on a
+    leading axis. Codes stay codes."""
+    def numpy(t):
+        return t.detach().cpu().numpy()
+
+    out = {k: tree_map(numpy, v) for k, v in tree.items() if k != "blocks"}
+    if "blocks" in tree:
+        out["blocks"] = _stack([tree_map(numpy, b) for b in tree["blocks"]])
+    return out
+
+
+def _stack(layers: list):
+    if isinstance(layers[0], dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in layers[0]}
+    return np.stack(layers)

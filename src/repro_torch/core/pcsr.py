@@ -181,15 +181,20 @@ class TransPolicy:
 FP32_POLICY = TransPolicy()
 P16_WEIGHTS = TransPolicy.from_names(weights="p16_1")
 P8_SERVE = TransPolicy.from_names(weights="p8_0", kv_cache="p8_0", compute_dtype="bf16")
+P16_TRAIN = TransPolicy.from_names(
+    weights="p16_1", gradients="p16_1", optimizer="p16_1", checkpoint="p16_1"
+)
 
 
 def parse_policy(spec: str) -> TransPolicy:
-    """The serving CLI's policy grammar: ``none`` | ``p8-serve`` |
+    """The CLIs' policy grammar: ``none`` | ``p8-serve`` | ``p16-train`` |
     ``role=fmt,...,compute=bf16`` (``kv`` abbreviates ``kv_cache``)."""
     if spec in ("none", ""):
         return TransPolicy()
     if spec == "p8-serve":
         return P8_SERVE
+    if spec == "p16-train":
+        return P16_TRAIN
     kw = {}
     cd = "f32"
     for part in spec.split(","):

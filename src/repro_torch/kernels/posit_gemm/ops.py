@@ -7,7 +7,10 @@ and split each word into its two codes; their launches count under
 ``posit_gemm_packed`` (tensor cores) and ``posit_gemm_packed_fma`` (f32
 FMA). p16 weights on the tensor cores (bf16 compute, decoded through the
 kernel's class table) count under ``posit_gemm_p16``; every other launch of
-the unpacked kernel under ``posit_gemm``."""
+the unpacked kernel under ``posit_gemm``.
+
+``float_linear`` is the float-weight linear as autograd sees it: the kernel
+in the forward, plain products in the backward."""
 from __future__ import annotations
 
 import ctypes
@@ -18,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch import kernels
-from repro_torch.core.dot import ACTIVATIONS, format_pair_plan
+from repro_torch.core.dot import ACTIVATIONS, _apply_activation, float_fmt, format_pair_plan
 from repro_torch.core.pcsr import OperandSlots
 from repro_torch.core.types import BF16, F32, Fmt, PositFmt
 from repro_torch.kernels import build, check_rc, on_cpu, require, stream_handle
@@ -207,6 +210,60 @@ def posit_gemm(
     check_rc(rc, "posit_gemm")
     kernels.LAUNCHES[launch_counter(b_kind, tensor_cores)] += 1
     return out
+
+
+class FloatLinear(torch.autograd.Function):
+    """``act(x @ w + bias) + residual`` for float x (M, K) and w (K, N): the
+    GEMM kernel in the forward (the same launch, fused epilogue included,
+    whether or not a gradient is wanted), plain f32 products in the backward.
+
+    The reference computes this linear as a plain ``jnp.matmul`` that XLA
+    differentiates; no Pallas kernel has a backward. So the backward is
+    ``torch.matmul`` on the saved operands, both as the kernel saw them
+    (rounded to ``compute_dtype``, then f32): the pre-activation ``z = x @ w
+    + bias`` recomputed in f32 where an activation needs it, ``dz = dy *
+    act'(z)``, ``dx = dz @ w.T``, ``dw = x.T @ dz``, ``dbias = dz.sum(0)``,
+    ``dresidual = dy``. Under bf16 compute ``dx`` stays f32 (the reference
+    rounds it to bf16)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, activation, compute_dtype):
+        y = posit_gemm(x, w, (0, 0, 0), a_fmt=float_fmt(x.dtype), b_fmt=float_fmt(w.dtype),
+                       out_fmt=F32, compute_dtype=compute_dtype, bias=bias,
+                       activation=activation, residual=residual)
+        ctx.save_for_backward(x, w, bias)
+        ctx.activation, ctx.compute_dtype = activation, compute_dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias = ctx.saved_tensors
+        need_x, need_w, need_b, need_res = ctx.needs_input_grad[:4]
+        with torch.profiler.record_function("posit_gemm_backward"):
+            xf = x.to(ctx.compute_dtype).to(torch.float32)
+            wf = w.to(torch.float32)
+            dz = dy
+            if ctx.activation != "none":
+                z = torch.matmul(xf, wf)
+                if bias is not None:
+                    z = z + bias
+                with torch.enable_grad():
+                    z.requires_grad_(True)
+                    dz, = torch.autograd.grad(_apply_activation(z, ctx.activation), z, dy)
+            dx = torch.matmul(dz, wf.T).to(x.dtype) if need_x else None
+            dw = torch.matmul(xf.T, dz).to(w.dtype) if need_w else None
+            db = dz.sum(0) if need_b and bias is not None else None
+        return dx, dw, db, dy if need_res else None, None, None
+
+
+def float_linear(x: torch.Tensor, w: torch.Tensor, *, compute_dtype: torch.dtype,
+                 bias: Optional[torch.Tensor] = None,
+                 residual: Optional[torch.Tensor] = None,
+                 activation: str = "none") -> torch.Tensor:
+    """``FloatLinear``: x (M, K) f32/bf16, w (K, N) in ``compute_dtype``,
+    bias (N,) and residual (M, N) f32 -> (M, N) f32, differentiable in all
+    four."""
+    return FloatLinear.apply(x, w, bias, residual, activation, compute_dtype)
 
 
 def gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,

@@ -1,5 +1,6 @@
-"""Attention for the dense decoder: prefill (full-sequence SDPA that fills the
-KV cache) and one decode step over a posit-coded KV cache.
+"""Attention for the dense decoder: training (full-sequence causal SDPA, no
+cache), prefill (the same, filling the KV cache) and one decode step over a
+posit-coded KV cache.
 
 KV-cache transprecision: when ``policy.kv_cache`` is a posit format the cache
 holds uint8/uint16 codes. Prefill encodes its K/V block on write (the encode
@@ -23,7 +24,7 @@ from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.models.layers import apply_linear, apply_rope, init_linear, rope_tables
 
 NEG_INF = -1e30
-Q_CHUNK = 512  # query-block size of the prefill SDPA
+Q_CHUNK = 512  # query-block size of the full-sequence SDPA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,8 +75,9 @@ def _sdpa_block(qg, k, v, scale, *, offset: int, causal: bool):
 
 
 def _sdpa(q, k, v, scale, *, causal: bool = True, q_chunk: int = Q_CHUNK):
-    """Prefill SDPA in plain torch (the reference computes it outside any
-    kernel too), one (B, H, q_chunk, T) score slab at a time.
+    """The full-sequence SDPA of training and prefill, in plain torch (the
+    reference computes it outside any kernel too), one (B, H, q_chunk, T)
+    score slab at a time; differentiable.
     q: (B,S,H,hd), k/v: (B,T,Hkv,hd)."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
@@ -118,26 +120,51 @@ def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos: int, policy: TransPo
     cache_arr[:, :, pos:pos + new.shape[2]] = new
 
 
-def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
-                      policy: TransPolicy, *,
-                      residual: Optional[torch.Tensor] = None, path: str = "attn") -> tuple:
-    """Full-sequence causal attention that also fills the KV cache (in place).
-    x: (B, S, D); ``residual`` fuses into the wo epilogue; ``path`` names the
-    projections for a per-layer policy. Returns (y, cache)."""
+def _self_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPolicy, *,
+                    rope=None, residual: Optional[torch.Tensor] = None,
+                    path: str = "attn") -> tuple:
+    """Full-sequence causal self-attention without a cache: the q/k/v
+    linears, RoPE at positions 0..S-1 (``rope`` their ``rope_tables``, made
+    here when None), the plain SDPA and wo with ``residual`` fused. Returns
+    (y, k, v), k and v (B, S, Hkv, hd) after RoPE."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = _split_heads(apply_linear(params["wq"], x, policy, path=f"{path}/wq"), H, hd)
     k = _split_heads(apply_linear(params["wk"], x, policy, path=f"{path}/wk"), Hkv, hd)
     v = _split_heads(apply_linear(params["wv"], x, policy, path=f"{path}/wv"), Hkv, hd)
     if cfg.use_rope:
-        rope = rope_tables(torch.arange(S, device=x.device)[None], hd, cfg.rope_base)
+        if rope is None:
+            rope = rope_tables(torch.arange(S, device=x.device)[None], hd, cfg.rope_base)
         q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    Sc = cache["k"].shape[2]
-    if S > Sc:
-        raise ValueError(f"prompt of {S} tokens exceeds the cache's {Sc} rows")
     out = _sdpa(q, k, v, hd ** -0.5, causal=cfg.causal)
     y = apply_linear(params["wo"], out.reshape(B, S, H * hd), policy, residual=residual,
                      path=f"{path}/wo")
+    return y, k, v
+
+
+def apply_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPolicy, *,
+                    rope=None, residual: Optional[torch.Tensor] = None,
+                    path: str = "attn") -> torch.Tensor:
+    """Training attention (the reference's ``apply_attention_dynwin`` at
+    window 0 and the layer's RoPE base): causal self-attention over the
+    whole sequence, no cache, differentiable. x: (B, S, D); ``rope`` the
+    tables of positions 0..S-1 (shared by every layer; made here when None);
+    ``residual`` fuses into the wo epilogue (the reference adds it after
+    wo: the same f32 sum)."""
+    return _self_attention(params, cfg, x, policy, rope=rope, residual=residual, path=path)[0]
+
+
+def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
+                      policy: TransPolicy, *,
+                      residual: Optional[torch.Tensor] = None, path: str = "attn") -> tuple:
+    """Full-sequence causal attention that also fills the KV cache (in place).
+    x: (B, S, D); ``residual`` fuses into the wo epilogue; ``path`` names the
+    projections for a per-layer policy. Returns (y, cache)."""
+    S = x.shape[1]
+    Sc = cache["k"].shape[2]
+    if S > Sc:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache's {Sc} rows")
+    y, k, v = _self_attention(params, cfg, x, policy, residual=residual, path=path)
     _store(cache["k"], k.transpose(1, 2), 0, policy)
     _store(cache["v"], v.transpose(1, 2), 0, policy)
     cache["len"].fill_(S)

@@ -19,12 +19,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.dot import apply_epilogue, float_fmt, posit_dot, posit_matmul_wx
+from repro_torch.core.dot import apply_epilogue, posit_dot, posit_matmul_wx
 from repro_torch.core.pack import pack_p8, unpack_p8
 from repro_torch.core.pcsr import OperandSlots, TransPolicy
+from repro_torch.core.tree import tree_map
 from repro_torch.core.types import F32, PositFmt
 from repro_torch.kernels.posit_codec import ops as codec_ops
-from repro_torch.kernels.posit_gemm.ops import posit_gemm
+from repro_torch.kernels.posit_gemm.ops import float_linear
 
 
 def compute_dtype(policy: TransPolicy) -> torch.dtype:
@@ -95,9 +96,11 @@ def _quantize_resolved(p: dict, pol: TransPolicy) -> dict:
 
 def effective_weight(p: dict, policy, es: Optional[int] = None, path: str = "") -> torch.Tensor:
     """The weight as the matmul datapath sees it: posit codes (packed lanes
-    included) decode; a float weight under a posit policy is quantized (the
-    reference's straight-through form ``w + (q(w) - w)``); a float weight
-    without one passes as it is."""
+    included) decode; a float weight under a posit policy is quantized in the
+    reference's straight-through form ``w + stop_gradient(q(w) - w)``, whose
+    gradient with respect to ``w`` is the identity; a float weight without
+    one passes as it is. The encode and decode run through the codec
+    kernels."""
     policy = resolve_policy(policy, path)
     fmt = policy.weights
     coded = p.get("w_codes")
@@ -111,10 +114,11 @@ def effective_weight(p: dict, policy, es: Optional[int] = None, path: str = "") 
     w = p["w"]
     if fmt is not None:
         e = fmt.es if es is None else es
-        wf = w.to(torch.float32).contiguous()
+        wf = w.detach().to(torch.float32).contiguous()
         qw = codec_ops.decode(codec_ops.encode(wf, e, nbits=fmt.nbits), e, nbits=fmt.nbits,
                               codec_impl=policy.codec_impl)
-        w = w + (qw - wf).to(w.dtype)
+        # straight through: the forward sees q(w), the gradient reaches w as it is
+        w = w + (qw - wf).detach().to(w.dtype)
     return w
 
 
@@ -151,11 +155,11 @@ def _linear_resolved(p: dict, x: torch.Tensor, policy: TransPolicy, es, *,
     lead = x.shape[:-1]
     res = None if residual is None else residual.reshape(-1, N).contiguous()
     chained = policy.epilogue == "chained"
-    y = posit_gemm(x.reshape(-1, K).contiguous(), w, (0, 0, 0),
-                   a_fmt=float_fmt(x.dtype), b_fmt=float_fmt(cd), out_fmt=F32,
-                   compute_dtype=cd, bias=None if chained else p.get("b"),
-                   activation="none" if chained else activation,
-                   residual=None if chained else res)
+    # the GEMM kernel in the forward, plain products in the backward
+    y = float_linear(x.reshape(-1, K).contiguous(), w, compute_dtype=cd,
+                     bias=None if chained else p.get("b"),
+                     activation="none" if chained else activation,
+                     residual=None if chained else res)
     if chained:
         y = apply_epilogue(y, p.get("b"), activation, res)
     return y.reshape(*lead, N).to(x.dtype)
@@ -211,7 +215,7 @@ def quantize_params(params, policy):
     p8 weights and the contraction dim is even, plain codes otherwise, left
     float without a posit weight format. Works on a copy of the dict/list
     spine; leaves are shared, float masters untouched."""
-    out = _copy_dicts(params)
+    out = tree_map(lambda leaf: leaf, params)     # a new dict/list spine, leaves shared
     for path, parent in _walk_linears(out):
         if "w" not in parent:
             continue
@@ -234,14 +238,6 @@ def policy_weight_bytes(params, policy) -> dict:
         fmt = resolve_policy(policy, path).weights
         policy_b += n * (fmt.storage_bytes if fmt is not None else 4)
     return {"weight_bytes_f32": f32_b, "weight_bytes_policy": policy_b}
-
-
-def _copy_dicts(tree):
-    if isinstance(tree, dict):
-        return {k: _copy_dicts(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_copy_dicts(v) for v in tree]
-    return tree
 
 
 # ------------------------------------------------------------------- norms ----

@@ -2,6 +2,8 @@
 
   model = build_model(cfg)                 # device="cuda" unless told otherwise
   params = model.init(seed, policy)        # quantized layer by layer under a posit policy
+  loss, metrics = model.loss(params, batch, policy)     # float params: training
+  hidden = model.forward(params, batch, policy)
   logits, cache = model.prefill(params, tokens, policy, S_max=...)
   logits, cache = model.decode_step(params, tokens_t, cache, policy)
   cache = model.init_paged_cache(B, n_blocks, block_tokens, table_width, policy)
@@ -30,6 +32,8 @@ class Model:
     # paged serving: (B, n_blocks, block_tokens, table_width, policy) -> cache
     init_paged_cache: Callable = None
     decode_step_paged: Callable = None    # decode_step over the paged cache
+    loss: Callable = None       # (params, batch, policy) -> (loss, {"ce", "aux"})
+    forward: Callable = None    # (params, batch, policy) -> hidden (B, S, D)
 
 
 def build_model(cfg: ModelCfg, device="cuda") -> Model:
@@ -56,4 +60,6 @@ def build_model(cfg: ModelCfg, device="cuda") -> Model:
             cfg, B, n_blocks, bt, width, pol, device=dev),
         decode_step_paged=lambda p, tok, cache, pol: transformer.decode_step_paged(
             p, tok, cache, cfg, pol),
+        loss=lambda p, batch, pol: transformer.lm_loss(p, batch, cfg, pol),
+        forward=lambda p, batch, pol: transformer.forward(p, batch["tokens"], cfg, pol)[0],
     )

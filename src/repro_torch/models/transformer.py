@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly for the dense family: init, cache init, prefill
-and decode_step (the serving path), and the paged serving cache and step
+"""Decoder-only LM assembly for the dense family: init, ``forward`` and the
+sequence-chunked loss ``lm_loss`` (training), cache init, prefill and
+decode_step (the serving path), and the paged serving cache and step
 (``init_paged_cache``, ``decode_step_paged``).
 
 Parameters: ``{"embed": {"table"}, "blocks": [per-layer dicts], "final_norm",
@@ -13,6 +14,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.device import resolve_device
@@ -23,6 +25,9 @@ from repro_torch.models.layers import (apply_embedding, apply_linear, apply_rmsn
                                        apply_swiglu, check_ported, embedding_logits,
                                        init_embedding, init_linear, init_rmsnorm,
                                        init_swiglu, rope_tables)
+
+
+LOSS_CHUNK = 1024  # sequence-chunked CE to bound peak logits memory
 
 
 def _require_dense(cfg: ModelCfg) -> None:
@@ -67,6 +72,70 @@ def logits_fn(params: dict, h: torch.Tensor, cfg: ModelCfg,
     if cfg.tie_embeddings:
         return embedding_logits(params["embed"], h)
     return apply_linear(params["lm_head"], h, policy, path="lm_head").to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# forward (train / no cache)
+# ---------------------------------------------------------------------------
+
+def _remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass (the
+    reference's ``jax.checkpoint``) when a gradient is being taken. The
+    forward draws no random numbers, so no RNG state is kept."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPolicy, *,
+            remat: bool = True) -> tuple:
+    """tokens (B, S) -> hidden (B, S, D) after the final norm, and the aux
+    loss (0.0 for the dense family). Every layer is checkpointed under
+    ``remat``, so its GEMM and codec launches run again in the backward
+    pass."""
+    _require_dense(cfg)
+    check_ported(policy)
+    acfg = attn_cfg(cfg)
+    rope = rope_tables(torch.arange(tokens.shape[1], device=tokens.device)[None],
+                       acfg.head_dim, acfg.rope_base)
+
+    def layer(x, p):
+        h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
+        # the block residuals fuse into the wo and down projections' epilogues
+        x = attn.apply_attention(p["attn"], acfg, h, policy, rope=rope, residual=x,
+                                 path="attn")
+        h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
+
+    x = apply_embedding(params["embed"], tokens)
+    for p in params["blocks"]:
+        x = _remat(layer, x, p) if remat else layer(x, p)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return apply_rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def lm_loss(params: dict, batch: dict, cfg: ModelCfg, policy: TransPolicy, *,
+            aux_weight: float = 0.01) -> tuple:
+    """Sequence-chunked cross-entropy, batch ``{"tokens", "labels"}`` (B, S)
+    int: the positions split into ``max(1, S // LOSS_CHUNK)`` chunks of equal
+    length (a remainder is dropped, as in the reference), each chunk's
+    logits recomputed in the backward pass. Returns (loss, {"ce", "aux"})."""
+    h, aux = forward(params, batch["tokens"], cfg, policy)
+    labels = batch["labels"]
+    B, S, _ = h.shape
+    n_chunks = max(1, S // LOSS_CHUNK)
+    Sc = S // n_chunks
+
+    def chunk_ll(hc, lc):
+        lp = torch.log_softmax(logits_fn(params, hc, cfg, policy), dim=-1)
+        return torch.gather(lp, -1, lc[..., None].to(torch.int64))[..., 0].sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(n_chunks):
+        cols = slice(c * Sc, (c + 1) * Sc)
+        total = total + _remat(chunk_ll, h[:, cols], labels[:, cols])
+    ce = -total / (B * n_chunks * Sc)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,

@@ -727,3 +727,22 @@ def test_paged_inject_nar_stays_in_its_slot_on_card(dev):
     (clean, bad0), (faulted, bad1) = runs
     assert bad0 == 0 and bad1 > 0
     assert faulted[1] == clean[1]
+
+
+def test_float_linear_backward_on_card(dev):
+    """The float linear's forward (the GEMM kernel) and backward (plain
+    products) at 512 rows and phi3's shapes, f32 and bf16 compute, within
+    chip_smoke.py's stated bounds of a float64 autograd."""
+    from chip_smoke import check_linear_backward
+
+    assert check_linear_backward(M=512)["worst_err_over_limit"] <= 1.0
+
+
+def test_train_steps_on_card_match_cpu(dev):
+    """Three train steps of reduced qwen2.5-14b and phi3-mini-3.8b under
+    ``none`` and ``p16-train``, the card against the CPU from the card's
+    state each step (chip_smoke.py's bounds)."""
+    from chip_smoke import check_train_reduced
+
+    res = check_train_reduced()
+    assert res["worst"]["code_diff"] <= 1 and len(res["runs"]) == 4
