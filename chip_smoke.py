@@ -20,6 +20,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      the packed plain version and against the unpacked kernel on
      ``unpack_p8`` of the same codes, their decode rows bit for bit the same
      at M = 1, 4 and 8;
+     past LARGE_M rows the large-M kernels (``posit_gemm_large.cu``): the
+     wgmma kernel at qwen2.5-14b's four prefill shapes (q/o, k/v, gate/up,
+     down; p8) at M = 4,032 and 1,024, the long context's and the paged
+     path's prompts, p8_1 at M = 130 and p16 at M = 200, a
+     ragged p8_2 tile (M = 1,000), bf16 weights at the training shape 4096 x
+     3072 x 8192, p16 weights at M = 1,024, p8 in and out, packed p8 at M =
+     130 and 1,024, and the 128 x 128 f32-FMA tile on f32 weights at 4096 x
+     3072 x 8192, p16 at M = 1,024 and packed p8 at M = 130 and 1,024: each
+     within the same bound (posit out within 1 ulp), counted under its own
+     launch key, two calls bit for bit the same;
      the quire GEMM kernel against its plain version, bit for bit, at
      phi3-mini-3.8b's shapes, and against itself unsplit, on Gaussian
      operands and on wide-span ones (every non-NaR code, minpos and maxpos
@@ -46,8 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. the reduced qwen2.5-14b (P8_SERVE, and the per-layer presets
      p8-packed and attn-p16-mlp-p8) and the reduced phi3-mini-3.8b (p16
      under the quire) on the card against the same models on the CPU (plain
-     versions). Then five paths, each with every kernel's launch count set
-     to 0 just before it and read just after:
+     versions), and the reduced qwen2.5-14b on a 2 x 300-token prompt, whose
+     prefill linears run on the wgmma kernel. Then five paths, each with
+     every kernel's launch count set to 0 just before it and read just after:
      - qwen2.5-14b at full width and depth, random weights from a seed,
        P8_SERVE, 8 requests (prompt 64, gen 16, 4 slots, greedy) through the
        continuous-batching engine;
@@ -63,7 +74,7 @@ Phases, in order; any failure raises and the script exits non-zero:
        4 slots, greedy): every linear through the quire GEMM;
      - the long context: qwen2.5-14b at full width and depth, P8_SERVE, 4
        requests of 4,032 prompt tokens and 64 generated, 4 slots, S_max
-       4,096;
+       4,096 (its prefills on the wgmma kernel);
      - the posit softmax entry point (core.dot.posit_softmax) on the paper's
        softmax rows and on phi3's logit rows;
      - the paged path: qwen2.5-14b at full width and depth, P8_SERVE, 16
@@ -73,7 +84,8 @@ Phases, in order; any failure raises and the script exits non-zero:
        grid's bytes, 264 blocks) and at 16 slots (the same 264 blocks):
        paged and grid bit for bit at both, 15 prefix hits of 912 tokens,
        all 16 admitted at once at 16 slots, a fork's two streams equal
-       through copy-on-write, no dense attention launch (``run_paged_path``);
+       through copy-on-write, no dense attention launch, the prefills on
+       the wgmma kernel (``run_paged_path``);
        then ``serve(paged=True, page_bytes=32768)`` through the entry point;
      and a profiled decode step of each served model, of the long context
      and of the paged engine (48 paged attention launches a step), each
@@ -105,7 +117,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      down and lm_head shapes, f32 and bf16 compute, y, dx, dw and db within
      stated bounds of a float64 autograd (``check_linear_backward``); (c)
      ``train.main`` at phi3-mini-3.8b's full width and 16 of its 32 layers,
-     8 x 512 tokens a step, with the launch counts set to 0 just before and
+     8 x 512 tokens a step, every forward linear on the 128 x 128 f32-FMA
+     tile, with the launch counts set to 0 just before and
      read just after: ``p16-train`` for 6 steps (every loss finite, the
      last below the first; one more step with every codec launch of layer
      0's straight-through weights and of lm_head's moments bit for bit the
@@ -127,8 +140,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      held to its plain version within phase 4's limits) and at S = 4,096
      with bt 16 and 1 beside the dense kernel on the same codes
      (``paged_attention_timings``); the training path's GEMM (float B, M =
-     4,096, phi3's shapes, f32 and bf16 compute) beside torch.matmul, and
-     the codec at 32064 x 3072 p16_1 (``train_timings``).
+     4,096, phi3's shapes, f32 and bf16 compute) beside torch.matmul and
+     the 64-row tiles forced at the same shapes, and the codec at 32064 x
+     3072 p16_1 (``train_timings``); the GEMM past the decode shapes, p8
+     weights at qwen2.5-14b's prefill shapes at M = 4,032 and 1,024 and the
+     crossover sweep at M = 64 to 512 (bf16 on p8 weights, f32 on f32 ones),
+     each on the large-M kernels and on the 64-row tiles, beside
+     torch.matmul (``large_gemm_timings``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
@@ -138,6 +156,7 @@ compare two checkouts on one card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import re
@@ -165,6 +184,7 @@ from repro_torch.kernels.posit_attention import ref as attn_ref  # noqa: E402
 from repro_torch.kernels.posit_attention.ref import posit_decode_attention_ref  # noqa: E402
 from repro_torch.kernels.posit_codec import ops as codec_ops  # noqa: E402
 from repro_torch.kernels.posit_codec import ref as codec_ref  # noqa: E402
+from repro_torch.kernels.posit_gemm import ops as gemm_ops  # noqa: E402
 from repro_torch.kernels.posit_gemm.ops import posit_gemm  # noqa: E402
 from repro_torch.kernels.posit_gemm.ref import posit_gemm_ref  # noqa: E402
 from repro_torch.kernels.posit_quire_gemm import ops as quire_ops  # noqa: E402
@@ -216,44 +236,115 @@ def bound_ms(nbytes: float, flops: float = 0.0, kind: str = "bf16") -> tuple[flo
 PROFILER_ROWS = ("Activity Buffer Request",)
 
 
-def device_rows(prof) -> list:
-    """The kernels and copies of a profile's ``key_averages()``: the rows with
-    device time but the aten::* ops (their kernels' time again), the runtime
-    calls (cudaLaunchKernel, cudaGraphLaunch) and the profiler's own rows."""
-    return [e for e in prof.key_averages() if e.self_device_time_total > 0
-            and not e.key.startswith(("aten::", "cuda")) and e.key not in PROFILER_ROWS]
+# The profiler loses the records of a window's first launches, never one
+# after them: from a prefix of an eager decode step (up to 93 kernels) to
+# more than 50 ms of a window, on the H100, varying from process to process.
+# So a window opens with a lead: a marker kernel (``torch.cuda._sleep``,
+# "spin_kernel", no kernel of the program's) every PROFILE_RUNG_S; it closes
+# with one more marker. A window is read only if its last lead marker and
+# its closing marker were recorded; a window lost is taken again with a
+# lead four times as long.
+PROFILE_MARK = "spin_kernel"
+PROFILE_RUNG_S = 0.005
+PROFILE_LEAD_S = 0.05
+PROFILE_TRIES = 4
+
+
+def mark() -> None:
+    torch.cuda._sleep(1000)
+
+
+@contextlib.contextmanager
+def profiled(*activities, lead: float = PROFILE_LEAD_S):
+    """``torch.profiler.profile`` over ``activities`` whose body runs after
+    ``lead`` seconds of markers; read it with ``device_events``."""
+    from torch.profiler import profile
+
+    torch.cuda.synchronize()
+    with profile(activities=list(activities)) as prof:
+        prof.rungs = max(1, round(lead / PROFILE_RUNG_S))
+        for _ in range(prof.rungs):
+            mark()
+            time.sleep(PROFILE_RUNG_S)
+        yield prof
+        torch.cuda.synchronize()
+        mark()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_RUNG_S)
+
+
+def device_events(prof):
+    """The device's own records of a ``profiled`` window's body (kernels,
+    copies, sets), one each, but the profiler's own rows, and the start
+    times of the body's markers after its first record (the closing one
+    last); None if the window was lost (no lead marker or no closing marker
+    recorded). Every window's lost lead goes into DETAILS["profiler"]."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type != DeviceType.CPU
+           and not e.is_user_annotation and e.name not in PROFILER_ROWS]
+    marks = sorted(e.time_range.start for e in dev if PROFILE_MARK in e.name)
+    body = [e for e in dev if PROFILE_MARK not in e.name]
+    first = min((e.time_range.start for e in body), default=float("inf"))
+    last = max((e.time_range.start for e in body), default=float("-inf"))
+    seen = sum(t < first for t in marks)
+    closed = bool(marks) and marks[-1] > last
+    stats = DETAILS.setdefault("profiler", {"windows": 0, "lost": [], "lead_lost_s_max": 0.0})
+    stats["windows"] += 1
+    if not (seen and closed):
+        stats["lost"].append({"lead_s": prof.rungs * PROFILE_RUNG_S, "lead_markers_seen": seen,
+                              "closed": closed, "records": len(body)})
+        return None
+    stats["lead_lost_s_max"] = max(stats["lead_lost_s_max"], (prof.rungs - seen) * PROFILE_RUNG_S)
+    return body, marks[seen:]
+
+
+def whole_window(body, *activities):
+    """``body()`` under ``profiled`` until a window is seen whole, up to
+    PROFILE_TRIES times: its profile, records and markers
+    (``device_events``)."""
+    lead = PROFILE_LEAD_S
+    for _ in range(PROFILE_TRIES):
+        with profiled(*activities, lead=lead) as prof:
+            body()
+        got = device_events(prof)
+        if got is not None:
+            return (prof, *got)
+        lead *= 4
+    raise RuntimeError(f"torch.profiler lost {PROFILE_TRIES} windows in a row: "
+                       f"{DETAILS['profiler']['lost'][-PROFILE_TRIES:]}")
 
 
 def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed by
     torch.profiler over ``calls`` back-to-back calls, median over
-    ``windows``, after a warm-up call. CUDA events around the calls would
-    time this host's dispatch instead: it is slower than most of these
-    kernels, so the card idles between them. Now and then the profiler
-    records no device activity in a window (seen for library calls); such a
-    window is left out and counted in DETAILS["profiler_empty_windows"], and
-    another is taken, up to ``4 * windows`` in all. If none recorded any
-    device time, it raises."""
-    from torch.profiler import ProfilerActivity, profile
+    ``windows``, after a warm-up call. The windows run in one ``profiled``
+    window, a marker after each; it is taken again (``whole_window``) if the
+    profiler lost its start or any of them recorded no device time (counted
+    in DETAILS["profiler_empty_windows"]). CUDA events around the calls
+    would time this host's dispatch instead: it is slower than most of these
+    kernels, so the card idles between them."""
+    from torch.profiler import ProfilerActivity
 
     fn()
     torch.cuda.synchronize()
-    per_call = []
-    for _ in range(4 * windows):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in device_rows(prof))
-        if us > 0:
-            per_call.append(us / calls / 1e3)
-            if len(per_call) == windows:
-                break
-        else:
-            DETAILS["profiler_empty_windows"] = DETAILS.get("profiler_empty_windows", 0) + 1
-    if not per_call:
-        raise RuntimeError(f"torch.profiler recorded no device time in {4 * windows} windows")
-    return statistics.median(per_call)
+    for _ in range(PROFILE_TRIES):
+        def body():
+            for _ in range(windows):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                mark()
+
+        _, events, marks = whole_window(body, ProfilerActivity.CUDA)
+        us = [0.0] * windows
+        for e in events:
+            us[sum(t < e.time_range.start for t in marks)] += e.device_time_total
+        if min(us) > 0:
+            return statistics.median(us) / calls / 1e3
+        DETAILS["profiler_empty_windows"] = DETAILS.get("profiler_empty_windows", 0) + 1
+    raise RuntimeError(f"torch.profiler recorded no device time in a window, {PROFILE_TRIES} "
+                       "times")
 
 
 def gen(seed: int) -> torch.Generator:
@@ -264,6 +355,12 @@ def gen(seed: int) -> torch.Generator:
 
 def bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32).view(torch.int32)
+
+
+def raw_bits(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's storage bits as integers (NaN payloads compare equal)."""
+    return x.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.uint16: torch.int16}.get(x.dtype, x.dtype))
 
 
 def max_abs_diff(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -314,7 +411,9 @@ def check_codec() -> dict:
 # --------------------------------------------------------------- phase 3 ----
 
 def gemm_cases():
-    """(name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, residual)."""
+    """(name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, residual[, compute
+    dtype]); the compute dtype defaults to bf16 for p8 and bf16 weights, f32
+    for p16 and f32 ones."""
     cases = []
     for M in (1, 4, 64):
         for K, N in GEMM_KN:
@@ -352,6 +451,34 @@ def gemm_cases():
                   True, "silu", True))
     cases.append(("p8 x p8 out M64 5120x1024", 64, 5120, 1024, P8_0, P8_0, P8_0,
                   True, "none", False))
+    # past LARGE_M rows, the large-M kernels: every prefill shape of the long
+    # context's and the paged path's prompts as the model calls it (wgmma, a
+    # posit B decoded to bf16 once for the call; k/v at M = 1,024 splits K),
+    # ragged tiles, the training shapes' float weights (bf16 B on wgmma, f32
+    # B on the 128 x 128 FMA tile), p16 weights on both, p8 out
+    for M in (LONG_PROMPT, PAGED_PROMPT):
+        for K, N in GEMM_KN[:4]:
+            bias = (K, N) in ((5120, 5120), (5120, 1024))
+            act = "silu" if (K, N) == (5120, 13824) else "none"
+            res = (K, N) in ((13824, 5120), (5120, 5120))
+            cases.append((f"p8 M{M} {K}x{N}", M, K, N, P8_0, torch.float32, F32,
+                          bias, act, res))
+    cases.append(("p8_1 M130 1032x1008", 130, 1032, 1008, P8_1, torch.float32, F32,
+                  True, "gelu", True))
+    cases.append(("p16 bf16 M200 5120x1024", 200, 5120, 1024, P16_1, torch.float32, F32,
+                  True, "silu", True, torch.bfloat16))
+    cases.append(("p8_2 M1000 1032x1008", 1000, 1032, 1008, P8_2, torch.float32, F32,
+                  True, "gelu", True))
+    cases.append(("bf16 M4096 3072x8192", 4096, 3072, 8192, BF16, torch.float32, F32,
+                  False, "silu", False))
+    cases.append(("f32 M4096 3072x8192", 4096, 3072, 8192, F32, torch.float32, F32,
+                  False, "silu", False))
+    cases.append(("p16 f32 M1024 5120x5120", 1024, 5120, 5120, P16_1, torch.float32, F32,
+                  True, "none", True))
+    cases.append(("p16 bf16 M1024 5120x1024", 1024, 5120, 1024, P16_1, torch.float32, F32,
+                  True, "relu", False, torch.bfloat16))
+    cases.append(("p8 x p8 out M257 1024x1024", 257, 1024, 1024, P8_0, P8_0, P8_0,
+                  True, "none", True))
     return cases
 
 
@@ -362,7 +489,7 @@ def make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, residual, seed=0):
     a = (codec_ops.encode(a, a_dtype.es, nbits=8) if isinstance(a_dtype, PositFmt)
          else a.to(a_dtype))
     w = torch.randn((K, N), generator=g, device=DEV) * K ** -0.5
-    b = (w.to(torch.bfloat16) if b_fmt == BF16
+    b = (w.to(torch.bfloat16) if b_fmt == BF16 else w if b_fmt == F32
          else codec_ops.encode(w, b_fmt.es, nbits=b_fmt.nbits))
     bi = torch.randn((N,), generator=g, device=DEV) * 0.1 if bias else None
     r = torch.randn((M, N), generator=g, device=DEV) if residual else None
@@ -437,16 +564,31 @@ def check_gemm() -> dict:
     worst = 0.0
     worst_ratio = 0.0
     rows = []
-    for name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, res in gemm_cases():
+    large_launches, repeat_differing = 0, 0
+    worst_large = {"posit_gemm_large_tc": 0.0, "posit_gemm_large_fma": 0.0}
+    for name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, res, *cd in gemm_cases():
         a, b, bi, r = make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, res)
         a_fmt = (a_dtype if isinstance(a_dtype, PositFmt)
                  else BF16 if a_dtype == torch.bfloat16 else F32)
-        cd = torch.bfloat16 if b_fmt == BF16 or b_fmt.nbits == 8 else torch.float32
+        cd = cd[0] if cd else (torch.bfloat16 if b_fmt == BF16 or
+                               getattr(b_fmt, "nbits", 32) == 8 else torch.float32)
         kw = dict(es=(getattr(a_fmt, "es", 0), getattr(b_fmt, "es", 0),
                       getattr(out_fmt, "es", 0)), a_fmt=a_fmt, b_fmt=b_fmt,
                   out_fmt=out_fmt, activation=act, compute_dtype=cd)
+        before = dict(kernels.LAUNCHES)
         got = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
                          bias=bi, residual=r, activation=act, compute_dtype=cd)
+        if M > gemm_ops.LARGE_M:
+            # the large-M kernels, each launch under its own key; a second
+            # call gives the same bits
+            key = "posit_gemm_large_tc" if gemm_ops.uses_tensor_cores(
+                gemm_ops._kind(a_fmt)[0], gemm_ops._kind(b_fmt)[0],
+                cd == torch.bfloat16) else "posit_gemm_large_fma"
+            assert kernels.LAUNCHES[key] == before[key] + 1, (name, key)
+            large_launches += 1
+            again = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
+                               bias=bi, residual=r, activation=act, compute_dtype=cd)
+            repeat_differing += int((raw_bits(again) != raw_bits(got)).sum())
         want = gemm_plain(a, b, bi, r, kw)
         if out_fmt == F32:
             c = gemm_bound_check(
@@ -454,6 +596,8 @@ def check_gemm() -> dict:
                 lambda sl: operand_values(b[:, sl].contiguous(), b_fmt), cd, K, bi, r)
             worst = max(worst, c["max_abs_err"])
             worst_ratio = max(worst_ratio, c["err_over_bound"])
+            if M > gemm_ops.LARGE_M:
+                worst_large[key] = max(worst_large[key], c["max_abs_err"])
             rows.append({"case": name, **c})
         else:
             # posit out: the f32 sums may round to neighbouring codes
@@ -464,8 +608,11 @@ def check_gemm() -> dict:
             rows.append({"case": name, "max_code_ulps": ulp})
         del a, b, bi, r, got, want
     torch.cuda.empty_cache()
+    assert repeat_differing == 0, f"large-M GEMM: {repeat_differing} values differ between calls"
     DETAILS["gemm_checks"] = rows
-    return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio}
+    return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio,
+            "large_m_cases": large_launches, "large_m_repeat_differing": repeat_differing,
+            "large_m_max_abs_err": worst_large}
 
 
 def check_packed_gemm() -> dict:
@@ -475,15 +622,18 @@ def check_packed_gemm() -> dict:
     M = 8 and 64, each against the packed plain version and against the
     unpacked kernel on ``unpack_p8`` of the same codes (``check_gemm``'s
     bound), its rows at M = 1 and 4 bit for bit rows of M = 8, and every
-    launch counted under its own variant."""
+    launch counted under its own variant; and at M = 130 and 1,024 (q/o,
+    gate/up) through the large-M kernels, counted under theirs."""
     # imported here: kernel_timings.py imports this module with older packages
     from repro_torch.core.pack import pack_p8, unpack_p8
 
     rows, worst, worst_ratio, differing = [], 0.0, 0.0, 0
     for cd, counter in ((torch.bfloat16, "posit_gemm_packed"),
                         (torch.float32, "posit_gemm_packed_fma")):
-        for M in (8, 64):
-            for K, N in GEMM_KN:
+        for M in (8, 64, 130, 1024):
+            # M = 130 and 1,024: the large-M kernels (B unpacked to bf16 once
+            # for the call on wgmma), at the q/o and gate/up shapes
+            for K, N in GEMM_KN if M <= 64 else GEMM_KN[:3:2]:
                 bias = (K, N) in ((5120, 5120), (5120, 1024))
                 act = "silu" if (K, N) == (5120, 13824) else "none"
                 res = (K, N) in ((13824, 5120), (5120, 5120))
@@ -494,7 +644,9 @@ def check_packed_gemm() -> dict:
                           compute_dtype=cd)
                 before = dict(kernels.LAUNCHES)
                 got = posit_gemm(a, bp, (0, 0, 0), bias=bi, residual=r, b_packed=True, **kw)
-                assert kernels.LAUNCHES[counter] == before[counter] + 1, counter
+                key = (counter if M <= gemm_ops.LARGE_M else "posit_gemm_large_tc"
+                       if cd == torch.bfloat16 else "posit_gemm_large_fma")
+                assert kernels.LAUNCHES[key] == before[key] + 1, key
                 assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"]
                 b = unpack_p8(bp, K).contiguous()
                 unpacked = posit_gemm(a, b, (0, 0, 0), bias=bi, residual=r, **kw)
@@ -1088,7 +1240,8 @@ def check_softmax() -> dict:
 
 # --------------------------------------------------------------- phase 5 ----
 
-def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05) -> dict:
+def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05,
+                      prompt_len: int = 16) -> dict:
     """A reduced model: the card's kernels against the CPU's plain versions,
     same seed-made weights, prefill + 4 greedy decode steps. Bounds: P8_SERVE
     rounds activations to bf16 and K/V to p8, where one flipped rounding
@@ -1096,15 +1249,21 @@ def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05) -> dict:
     (bf16 compute) and attn-p16-mlp-p8 (p16 and packed-p8 weights, 0.05);
     under the quire every linear is exact, but f32 norms, attention and silu
     in another order can move a p16 activation or K/V code by one ulp
-    (2^-13), ~1e-3 on a logit (2e-3)."""
+    (2^-13), ~1e-3 on a logit (2e-3). A prompt past LARGE_M tokens (2 x
+    300) runs every prefill linear on the large-M kernels (asserted)."""
     cfg = arch.reduced()
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     params_cpu = cpu_model.init(0, policy)
     params_gpu = _to(params_cpu, DEV)
-    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(0),
-                         dtype=torch.int32)
-    lc, cc = cpu_model.prefill(params_cpu, toks, policy, S_max=24)
-    lg, cg = gpu_model.prefill(params_gpu, toks.to(DEV), policy, S_max=24)
+    toks = torch.randint(0, cfg.vocab, (2, prompt_len),
+                         generator=torch.Generator().manual_seed(0), dtype=torch.int32)
+    lc, cc = cpu_model.prefill(params_cpu, toks, policy, S_max=prompt_len + 8)
+    before = dict(kernels.LAUNCHES)
+    lg, cg = gpu_model.prefill(params_gpu, toks.to(DEV), policy, S_max=prompt_len + 8)
+    large = {k: kernels.LAUNCHES[k] - before[k]
+             for k in ("posit_gemm_large_tc", "posit_gemm_large_fma")}
+    if 2 * prompt_len > gemm_ops.LARGE_M:
+        assert sum(large.values()) > 0, "a long prefill left the large-M kernels"
     worst, agree, clear = 0.0, 0, 0
     for _ in range(5):
         err = float((lg.cpu() - lc).abs().max())
@@ -1119,8 +1278,9 @@ def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05) -> dict:
         tok = lc.argmax(-1).to(torch.int32)
         lc, cc = cpu_model.decode_step(params_cpu, tok, cc, policy)
         lg, cg = gpu_model.decode_step(params_gpu, tok.to(DEV), cg, policy)
-    return {"arch": cfg.name, "policy": policy.describe(), "max_logit_err": worst,
-            "bound": bound, "greedy_agree": agree, "margin_clear": clear}
+    return {"arch": cfg.name, "policy": policy.describe(), "prompt": [2, prompt_len],
+            "max_logit_err": worst, "bound": bound, "greedy_agree": agree,
+            "margin_clear": clear, "prefill_large_m_launches": large}
 
 
 def _to(tree, device):
@@ -1165,7 +1325,9 @@ def run_long_path() -> tuple[dict, dict]:
                    emit=events.append)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    for name in P8_PATH_KERNELS:
+    # the 4,032-token prefills on the wgmma kernel, the decode steps on the
+    # rest (kernel_timings.py runs this path on packages from before it too)
+    for name in P8_PATH_KERNELS + tuple(k for k in ("posit_gemm_large_tc",) if k in launches):
         assert launches[name] > 0, f"kernel {name} was not launched on the long path"
     assert report["requests"] == 4, report["requests"]
     assert all(n == LONG_GEN for n in report["completion_tokens"].values()), \
@@ -1377,6 +1539,9 @@ def run_paged_path() -> tuple[dict, dict]:
         res["launches"] = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         res["captured"] = type(eng._decode).__name__ == "CapturedStep"
         assert res["captured"], f"paged path {name}: the decode step was not captured"
+        # the 1,024-token prefills (a prefix hit prefills its whole prompt too): wgmma
+        assert res["launches"].get("posit_gemm_large_tc", 1) > 0, \
+            f"paged path {name}: {res['launches']}"
         assert res["reasons"] == ["max_new"], f"paged path {name}: {res['reasons']}"
         if cls is Paged:
             n_blocks = eng.n_blocks
@@ -1507,7 +1672,7 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
     the wrappers' launches a step and the GEMM kernels a step by datapath
     and B kind; with ``share``, one more step records the share of the
     quire GEMM's products that took its per-product branch (not timed)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1515,18 +1680,26 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
         eng.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / steps * 1e3
-    t0 = time.perf_counter()
-    before = dict(kernels.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    seen = {}
+
+    def window():
+        seen["before"] = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-    window_us = (time.perf_counter() - t0) * 1e6
+        seen["window_us"] = (time.perf_counter() - t0) * 1e6
+
+    _, dev, _ = whole_window(window, ProfilerActivity.CPU, ProfilerActivity.CUDA)
+    before, window_us = seen["before"], seen["window_us"]
     step_launches = {k: (kernels.LAUNCHES[k] - before[k]) / steps for k in before}
     quire_calls = kernels.LAUNCHES["posit_quire_gemm"] - before["posit_quire_gemm"]
     shares = quire_step_share(eng) if share else None
-    by_name = sorted(((e.key, e.self_device_time_total, e.count) for e in device_rows(prof)),
-                     key=lambda r: -r[1])
+    totals: dict = {}
+    for e in dev:
+        us, c = totals.get(e.name, (0.0, 0))
+        totals[e.name] = (us + e.device_time_total, c + 1)
+    by_name = sorted(((n, us, c) for n, (us, c) in totals.items()), key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
     epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
     # the GEMM's datapaths by kernel name: tensor cores, and the f32-FMA
@@ -1565,6 +1738,10 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
                      c / steps} for n, us, c in by_name[:14]]}
 
 
+# a profiled request's new tokens: room for the profiled window's retries
+PROFILE_GEN = 32
+
+
 def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 4,
                    share: bool = False, swap=None, engine=ContinuousBatchingEngine,
                    engine_kw=None, slots: int = 4) -> dict:
@@ -1589,10 +1766,10 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     runs = {}
     for name, cls in (("graph", engine), ("eager", eager_twin(engine))):
         kernels.reset_launches()
-        eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + 16,
+        eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + PROFILE_GEN,
                   **(engine_kw or {}))
         reqs = poisson_requests(slots, arrival_rate=0.0, prompt_lens=(prompt_len,),
-                                max_new_tokens=16, vocab=arch.vocab, seed=1)
+                                max_new_tokens=PROFILE_GEN, vocab=arch.vocab, seed=1)
         recorded = served_recorded(eng, reqs, swap)
         if swap is not None:
             eng.apply_policy(policy)
@@ -1624,8 +1801,7 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     assert graph["run_launches"] == eager["run_launches"], (graph["run_launches"],
                                                            eager["run_launches"])
     assert graph["launches_per_step"] == eager["launches_per_step"]
-    # the profiler reports the kernels inside a graph launch by name; now and
-    # then it loses a kernel's record (a fraction of a kernel a step)
+    # the profiler reports the kernels inside a graph launch by name
     gc, ec = graph["kernel_counts"], eager["kernel_counts"]
     assert abs(graph["launches_all_kernels_per_step"]
                - eager["launches_all_kernels_per_step"]) <= 1, \
@@ -2023,31 +2199,36 @@ def cpu_tensor_ops(fn) -> list:
 
 
 TRAIN_KERNELS = {
+    "posit_gemm_large_fma": r"\blarge_fma_kernel\b",
+    "posit_gemm_large_tc": r"\b(large_wgmma_kernel|a_bf16_kernel|b_bf16_kernel)\b",
     "posit_gemm": r"\b(tc_gemm_kernel|gemv_kernel|gemm_kernel|splitk_epilogue_kernel)\b",
     "posit_encode": r"\bencode_kernel\b", "posit_decode": r"\bdecode_kernel\b"}
 
 
 def profile_train_step(step_fn, params, opt, batch, step: int) -> dict:
-    """One train step under torch.profiler: device ms, each port kernel's
+    """One train step under torch.profiler (another while the profiler
+    loses the window, ``whole_window``): device ms, each port kernel's
     calls and device ms, the backward products' (``FloatLinear.backward``'s
     ``posit_gemm_backward`` range: torch.matmul and the activation's
     derivative), the wrappers' launches, and the top rows."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    before = dict(kernels.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    seen = {}
+
+    def window():
+        seen["before"] = dict(kernels.LAUNCHES)
         step_fn(params, opt, batch, step)
         torch.cuda.synchronize()
-    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before
-                if kernels.LAUNCHES[k] != before[k]}
+
     # the device's own records (kernels, copies, sets), one each: not the key
     # averages, where a CPU range (the autograd Function's, the backward's
     # annotation) would carry its kernels' time a second time
+    prof, dev, _ = whole_window(window, ProfilerActivity.CPU, ProfilerActivity.CUDA)
+    before = seen["before"]
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                if kernels.LAUNCHES[k] != before[k]}
     events = prof.events()
-    dev = [e for e in events if e.device_type != DeviceType.CPU and not e.is_user_annotation
-           and e.name not in PROFILER_ROWS]
     out = {"device_ms": sum(e.device_time_total for e in dev) / 1e3, "kernels_per_step": len(dev),
            "launches": launches, "kernels": {}}
     for name, pat in TRAIN_KERNELS.items():
@@ -2106,7 +2287,10 @@ def run_train_path(policy: str, steps: int, checks: bool, *, argv=TRAIN_ARGV, cf
     walls = [b[0] - a[0] for a, b in zip(step_recs, step_recs[1:])]
     wall = statistics.median(walls)
     pol = parse_policy(policy)
-    for name in ("posit_gemm",) + (("posit_encode", "posit_decode") if pol.weights else ()):
+    # every linear at M = 4,096 on the 128 x 128 f32-FMA tile (on posit_gemm in
+    # a package from before it, which kernel_timings.py runs too)
+    gemm_key = "posit_gemm_large_fma" if "posit_gemm_large_fma" in launches else "posit_gemm"
+    for name in (gemm_key,) + (("posit_encode", "posit_decode") if pol.weights else ()):
         assert launches[name] > 0, f"kernel {name} was not launched on the train path"
     if pol.weights is None:
         assert launches["posit_encode"] == launches["posit_decode"] == 0, launches
@@ -2184,7 +2368,8 @@ def train_timings(M: int = TRAIN_M, layers: int = 16) -> dict:
     ``FloatLinear`` calls it (f32 activations, f32 out) at M rows and phi3's
     linear shapes (lm_head included), under f32 compute (f32 B, the f32-FMA
     tile kernel) and bf16 compute (bf16 B, the tensor cores), each beside its
-    bound, its plain version and one torch.matmul on the same dtypes (f32
+    bound, its plain version, the kernels below LARGE_M forced at the same
+    shape (``tile64_ms``) and one torch.matmul on the same dtypes (f32
     with TF32 off; bf16 x bf16). The codec at phi3's largest weight (32064 x
     3072): encode f32 -> p16_1 and decode p16_1 -> f32 beside the bound
     and the plain version. Times from CUDA events (``event_ms``).
@@ -2204,13 +2389,16 @@ def train_timings(M: int = TRAIN_M, layers: int = 16) -> dict:
             b = w.to(cd)
             kw = dict(a_fmt=F32, b_fmt=float_fmt(cd), out_fmt=F32, compute_dtype=cd)
             ms = event_ms(lambda: posit_gemm(a, b, (0, 0, 0), **kw))
+            with forced_route(False):   # the 64-row tiles, in a package that has both
+                tile64 = event_ms(lambda: posit_gemm(a, b, (0, 0, 0), **kw))
             ac = a.to(cd)
             lib = event_ms(lambda: torch.matmul(ac, b))
             plain = event_ms(lambda: posit_gemm_ref(a, b, (0, 0, 0), **kw), calls=2)
             nbytes = a.numel() * 4 + b.numel() * b.element_size() + M * N * 4
             kind = "f32" if cd == torch.float32 else "bf16"
             b_ms, by = bound_ms(nbytes, 2.0 * M * K * N, kind)
-            gemm.append({"M": M, "K": K, "N": N, "compute": kind, "ms": ms, "plain_ms": plain,
+            gemm.append({"M": M, "K": K, "N": N, "compute": kind, "ms": ms, "tile64_ms": tile64,
+                         "plain_ms": plain,
                          "library_ms": lib, "bound_ms": b_ms, "bound_by": by,
                          "kernel_over_library": ms / lib, "per_train_step": per_step[(K, N)]})
             del b, ac
@@ -2329,6 +2517,63 @@ def p16_timings(M: int = 4, shapes=P16_KN, plain: bool = False) -> list:
                 lambda: posit_gemm_ref(a, b, (0, 1, 0), compute_dtype=torch.bfloat16, **kw),
                 windows=3, calls=1)
         del a, b, wdec, w16, a16
+        torch.cuda.empty_cache()
+    return rows
+
+
+CROSSOVER_M = (64, 128, 256, 512)   # the sweep that sets LARGE_M
+
+
+@contextlib.contextmanager
+def forced_route(large: bool):
+    """``posit_gemm`` on the large-M kernels at any M (``large``) or on the
+    kernels below the threshold at any M. A package without the large-M
+    kernels has one route and is left as it is."""
+    old = getattr(gemm_ops, "LARGE_M", None)
+    if old is not None:
+        gemm_ops.LARGE_M = 0 if large else 1 << 30
+    try:
+        yield
+    finally:
+        if old is not None:
+            gemm_ops.LARGE_M = old
+
+
+def large_gemm_timings() -> list:
+    """The GEMM past the decode shapes: p8_0 weights as a prefill calls them
+    (f32 activations, bf16 compute) at qwen2.5-14b's four prefill shapes, M =
+    4,032 (the long context's prompts) and 1,024 (the paged path's), and the
+    crossover sweep at q/o and gate/up, M = 64 to 512, under bf16 compute on
+    p8 weights and f32 compute on f32 weights. Each row: ``ms`` as the
+    package routes it, and where it has the large-M kernels both routes
+    forced (``large_ms``, ``tile64_ms``), beside the bound and one
+    torch.matmul in the compute dtype (bf16 on the decoded weight; f32 with
+    TF32 off)."""
+    cases = [(M, K, N, torch.bfloat16) for M in (LONG_PROMPT, PAGED_PROMPT)
+             for K, N in GEMM_KN[:4]]
+    cases += [(M, K, N, cd) for cd in (torch.bfloat16, torch.float32) for M in CROSSOVER_M
+              for K, N in (GEMM_KN[0], GEMM_KN[2])]
+    has_large = hasattr(gemm_ops, "LARGE_M")
+    rows = []
+    for M, K, N, cd in cases:
+        b_fmt = P8_0 if cd == torch.bfloat16 else F32
+        a, b, _, _ = make_gemm_inputs(M, K, N, b_fmt, torch.float32, False, False, seed=4)
+        kw = dict(a_fmt=F32, b_fmt=b_fmt, out_fmt=F32, compute_dtype=cd)
+        call = lambda: posit_gemm(a, b, (0, 0, 0), **kw)  # noqa: E731
+        row = {"M": M, "K": K, "N": N, "compute": str(cd).split(".")[-1], "ms": time_ms(call)}
+        if has_large:
+            for name, large in (("large_ms", True), ("tile64_ms", False)):
+                with forced_route(large):
+                    row[name] = time_ms(call)
+        wdec = (codec_ops.decode(b, 0, nbits=8, out_dtype=torch.bfloat16)
+                if b_fmt == P8_0 else b)
+        ac = a.to(cd)
+        row["library_ms"] = time_ms(lambda: torch.matmul(ac, wdec))
+        nbytes = a.numel() * 4 + b.numel() * b.element_size() + M * N * 4
+        kind = "bf16" if cd == torch.bfloat16 else "f32"
+        row["bound_ms"], row["bound_by"] = bound_ms(nbytes, 2.0 * M * K * N, kind)
+        rows.append(row)
+        del a, b, wdec, ac
         torch.cuda.empty_cache()
     return rows
 
@@ -2602,6 +2847,30 @@ def time_kernels(launches: dict, errs: dict) -> list:
                 sh["bytes"], 2 * 4 * sh["K"] * sh["N"], "bf16", sh["library_ms"])
     DETAILS["gemm_p16_decode_shapes"] = shapes
     DETAILS["gemm_p16_prefill_shapes"] = p16_timings(64)
+    # the large-M kernels: wgmma at the long context's gate/up prefill (p8 B,
+    # M = 4,032) beside torch.matmul bf16 on the decoded weight, the FMA tile
+    # at the train step's gate/up (f32 B, M = 4,096) beside cuBLAS SGEMM (TF32
+    # off), from CUDA events as ``train_timings`` (the profiler's windows have
+    # lost cuBLAS records at these sizes); every prefill shape and the
+    # crossover sweep go to the details
+    for name, M, (K, N), b_fmt, cd in (
+            ("posit_gemm_large_tc", LONG_PROMPT, (5120, 13824), P8_0, torch.bfloat16),
+            ("posit_gemm_large_fma", TRAIN_M, (3072, 8192), F32, torch.float32)):
+        a, b, _, _ = make_gemm_inputs(M, K, N, b_fmt, torch.float32, False, False, seed=4)
+        kw = dict(es=(0, 0, 0), a_fmt=F32, b_fmt=b_fmt, out_fmt=F32, activation="none",
+                  compute_dtype=cd)
+        ms = event_ms(lambda: posit_gemm(a, b, (0, 0, 0), a_fmt=F32, b_fmt=b_fmt, out_fmt=F32,
+                                         compute_dtype=cd))
+        wdec = codec_ops.decode(b, 0, nbits=8, out_dtype=cd) if b_fmt == P8_0 else b
+        ac = a.to(cd)
+        row(name, "src/repro_torch/csrc/posit_gemm_large.cu",
+            "src/repro/kernels/posit_gemm/posit_gemm.py:244", ms,
+            event_ms(lambda: gemm_plain(a, b, None, None, kw), calls=2),
+            a.numel() * 4 + b.numel() * b.element_size() + M * N * 4, 2.0 * M * K * N,
+            "bf16" if cd == torch.bfloat16 else "f32", event_ms(lambda: torch.matmul(ac, wdec)))
+        del a, b, wdec, ac
+        torch.cuda.empty_cache()
+    DETAILS["gemm_large_timings"] = large_gemm_timings()
     # attention: a decode step of the main path, 4 slots at S_max = 80 (all full)
     q, k, v, lens = attn_inputs(8, S=80, lengths=(80, 80, 80, 80), seed=5)
     kd = codec_ref.decode_ref(k, 0, nbits=8).repeat_interleave(5, dim=1)
@@ -2713,6 +2982,7 @@ def main() -> int:
         log("reduced_model_" + name, **check_small_model(QWEN, get_precision_policy(name)))
     log("reduced_model_" + MIXED + "_p8_serve", **check_small_model(QWEN, mixed_policy))
     log("reduced_model_quire", **check_small_model(PHI3, parse_policy(QUIRE_SPEC), 2e-3))
+    log("reduced_model_long_prefill", **check_small_model(prompt_len=300))
 
     keys = ("arch", "requests", "tokens", "decode_tok_per_s", "p50_token_ms", "p95_token_ms",
             "p50_ttft_ms", "decode_steps", "setup_s", "makespan_s", "kv_bytes_per_token",
@@ -2837,6 +3107,7 @@ def main() -> int:
             "posit_gemm_packed": packed_res["max_abs_err"],
             "posit_gemm_packed_fma": packed_res["max_abs_err"],
             "posit_gemm_p16": p16_res["max_abs_err"],
+            **gemm_res["large_m_max_abs_err"],
             "posit_quire_gemm": quire_res["max_abs_err"],
             "posit_softmax": softmax_res["max_abs_err"]}
     DETAILS["path_launches"] = {"p8_serve": launches, "mixed": m_launches,
@@ -2850,11 +3121,15 @@ def main() -> int:
                     posit_gemm_packed_fma=f_launches["posit_gemm_packed_fma"],
                     posit_quire_gemm=q_launches["posit_quire_gemm"],
                     posit_softmax=sm_launches["posit_softmax"],
-                    posit_attention_paged=p_launches["posit_attention_paged"])
+                    posit_attention_paged=p_launches["posit_attention_paged"],
+                    posit_gemm_large_tc=l_launches["posit_gemm_large_tc"],
+                    posit_gemm_large_fma=train_lines["p16-train"]["launches_run"]
+                    ["posit_gemm_large_fma"])
     rows = time_kernels(launches, errs)
     DETAILS["train_timings"] = train_timings()
     log("train_timings", **DETAILS["train_timings"])
     log("attention_paged_timings", rows=DETAILS["paged_attention_timings"])
+    log("gemm_large_timings", rows=DETAILS["gemm_large_timings"])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     DETAILS.update(kernels=rows, nvidia_smi=smi, seconds=time.perf_counter() - t_start)

@@ -2,7 +2,7 @@
 decode attention on one NVIDIA GPU, for this checkout's package or for
 another checkout's:
 
-    python3 kernel_timings.py [--src DIR] [--profiles | --attention | --train]
+    python3 kernel_timings.py [--src DIR] [--profiles | --attention | --train | --prefill]
 
 DIR is the ``src`` directory of another checkout, for example the parent
 commit unpacked with ``git archive`` under ``build/`` (which .gitignore
@@ -47,6 +47,13 @@ phi3-mini-3.8b's linear shapes under f32 and bf16 compute beside
 torch.matmul, the codec at 32064 x 3072 p16_1) and its steps
 (``run_train_path`` without its one-step checks: phi3-mini-3.8b at full
 width, 16 layers, 8 x 512 tokens, p16-train for 6 steps and none for 3).
+With --prefill it builds the codec, GEMM (the large-M kernels where the
+package has them) and attention kernels and times the GEMM past the decode
+shapes (chip_smoke.py ``large_gemm_timings``: qwen2.5-14b's prefill shapes at
+M = 4,032 and 1,024 and the crossover sweep at M = 64 to 512, each route of
+the package forced where it has two, beside torch.matmul), then the long
+context path (4 x 4,032-token prompts, ``run_long_path``) and the paged path
+(``run_paged_path``) for their TTFT.
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -86,16 +93,33 @@ def main() -> int:
             res["paged_attention"] = smoke.paged_attention_timings()
         print(json.dumps({"timings": res}))
         return 0
+    large = ("posit_gemm_large",) if "posit_gemm_large" in smoke.build.SOURCES else ()
+    if "--prefill" in sys.argv:
+        res = {"src": str(src), "nvidia_smi": smi,
+               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *large,
+                                                   "posit_attention")),
+               "gemm_large": smoke.large_gemm_timings()}
+        keys = ("p50_ttft_ms", "p95_ttft_ms", "ttft_ms", "decode_tok_per_s", "makespan_s",
+                "launches")
+        report, launches = smoke.run_long_path()
+        res["long_path"] = {k: report[k] for k in keys if k in report}
+        res["long_path"]["launches"] = launches
+        torch.cuda.empty_cache()
+        report, launches = smoke.run_paged_path()
+        res["paged_path"] = {k: report[k] for k in ("grid4", "paged4", "grid16", "paged16")}
+        res["paged_path"]["launches"] = launches
+        print(json.dumps({"timings": res}))
+        return 0
     if "--train" in sys.argv:
         res = {"src": str(src), "nvidia_smi": smi,
-               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm")),
+               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *large)),
                "train": smoke.train_timings()}
         for policy, steps in (("p16-train", 6), ("none", 3)):
             res[f"train_path_{policy}"] = smoke.run_train_path(policy, steps, checks=False)
             torch.cuda.empty_cache()
         print(json.dumps({"timings": res}))
         return 0
-    seconds = smoke.build.build(("posit_codec", "posit_gemm", "posit_attention",
+    seconds = smoke.build.build(("posit_codec", "posit_gemm", *large, "posit_attention",
                                  "posit_quire_gemm", "posit_softmax"))
     res = {"src": str(src), "build_seconds": seconds,
            "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),

@@ -90,7 +90,7 @@
 //
 // The epilogue (bias, activation, residual, posit encode or float store)
 // runs in registers on both paths.
-#include "posit_codec.cuh"
+#include "posit_gemm.cuh"
 
 namespace {
 
@@ -102,51 +102,11 @@ using posit::fill_p16_table;
 using posit::kP16TabBytes;
 using posit::p16_f32;
 using posit::p16_magnitude;
-
-// Storage kind of a packed p8 B: two codes a uint16 word, split-K lanes.
-constexpr int kP8x2 = 4;
-
-struct GemmArgs {
-  const void* a;
-  const void* b;
-  void* out;
-  const float* bias;      // (N,) or null
-  const float* residual;  // (M, N) or null
-  float* partial;         // FMA: (splits, M, N) when splits > 1; tensor cores:
-                          // (grid, 2, BM, 128), a block's first and last part
-  int* counters;          // tensor cores: one zeroed counter per output tile
-  int M, N, K;
-  int kb;  // rows of B: K, or Kh = ceil(K / 2) packed rows
-  int es_a, es_b, es_out;
-  int out_kind;  // posit::Kind of the output
-  int act;
-  int bf16_compute;
-  int splits;       // FMA: K splits (blockIdx.z)
-  int k_per_split;
-};
-
-__device__ __forceinline__ void emit(const GemmArgs& g, long long idx, int n, float y) {
-  if (g.bias != nullptr) y += g.bias[n];
-  y = posit::activate(y, g.act);
-  if (g.residual != nullptr) y += g.residual[idx];
-  switch (g.out_kind) {
-    case kF32:
-      static_cast<float*>(g.out)[idx] = y;
-      break;
-    case kBF16:
-      static_cast<__nv_bfloat16*>(g.out)[idx] = __float2bfloat16_rn(y);
-      break;
-    case kP8:
-      static_cast<uint8_t*>(g.out)[idx] = static_cast<uint8_t>(posit::encode(y, 8, g.es_out));
-      break;
-    default:
-      static_cast<uint16_t*>(g.out)[idx] = static_cast<uint16_t>(posit::encode(y, 16, g.es_out));
-  }
-}
-
-__device__ __forceinline__ float to_compute(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
+using gemm::GemmArgs;
+using gemm::emit;
+using gemm::kP8x2;
+using gemm::splitk_epilogue_kernel;
+using gemm::to_compute;
 
 // Two p16 codes (a uint32 word: low half, high half) as two bf16, RNE from
 // the exact values (NaR: a NaN).
@@ -413,16 +373,6 @@ gemv_kernel(GemmArgs g, bool vec_ok) {
       else emit(g, idx, n, y);
     }
   }
-}
-
-// Sum the K-split partials in split order, then the epilogue.
-__global__ void __launch_bounds__(256) splitk_epilogue_kernel(GemmArgs g) {
-  const long long MN = static_cast<long long>(g.M) * g.N;
-  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  if (idx >= MN) return;
-  float y = g.partial[idx];
-  for (int s = 1; s < g.splits; ++s) y += g.partial[s * MN + idx];
-  emit(g, idx, static_cast<int>(idx % g.N), y);
 }
 
 // ---- tensor-core path: B as p8 (packed or not), p16 or bf16 codes, bf16 compute ----

@@ -17,8 +17,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("posit_codec", "posit_gemm", "posit_attention", "posit_quire_gemm",
-           "posit_softmax")
+SOURCES = ("posit_codec", "posit_gemm", "posit_gemm_large", "posit_attention",
+           "posit_quire_gemm", "posit_softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,9 +36,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``name`` lives for the current sources and flags."""
+    """Where the library of ``name`` lives for the current sources (its own and
+    every shared header) and flags."""
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "posit_codec.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

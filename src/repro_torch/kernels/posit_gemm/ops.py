@@ -9,6 +9,13 @@ FMA). p16 weights on the tensor cores (bf16 compute, decoded through the
 kernel's class table) count under ``posit_gemm_p16``; every other launch of
 the unpacked kernel under ``posit_gemm``.
 
+Above ``LARGE_M`` rows (long prefills, training) a GEMM whose shape the
+large-M kernels take (``large_shape_ok``) goes to csrc/posit_gemm_large.cu
+instead: the ``wgmma`` kernel for the tensor-core pairs
+(``posit_gemm_large_tc``; a posit B is decoded to bf16 once for the call)
+and the 128 x 128 f32-FMA tile for the rest (``posit_gemm_large_fma``),
+whatever the B kind. ``gemm_route`` is the choice.
+
 ``float_linear`` is the float-weight linear as autograd sees it: the kernel
 in the forward, plain products in the backward."""
 from __future__ import annotations
@@ -31,14 +38,30 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "posit_gemm_launch": (_P,) * 7 + (_I,) * 13 + (_P,),
 }
+_LARGE_SIGNATURES = {
+    "posit_gemm_large_launch": (_P,) * 8 + (_I,) * 13 + (_P,),
+}
 # Tile of the tensor-core kernel (csrc/posit_gemm.cu kTcBN, kTcBK): 128
 # output columns, 64 k rows a pipeline stage; 8 rows for M <= 8, else 64.
 TC_COLS, TC_STEP = 128, 64
 _ACT = {a: i for i, a in enumerate(ACTIVATIONS)}
 
 
+# Rows above which a GEMM takes the large-M kernels (PERF.md: the crossover
+# sweep); decode batches and 64-token prefills keep the tiles above.
+LARGE_M = 64
+# Tiles of the large-M kernels (csrc/posit_gemm_large.cu): tensor cores 128
+# rows x 256 columns, 64-row k blocks of B; f32 FMA 128 x 128, 8-row stages.
+LARGE_TC_ROWS, LARGE_TC_COLS, LARGE_TC_STEP = 128, 256, 64
+LARGE_FMA_TILE, LARGE_FMA_STEP = 128, 8
+
+
 def _lib():
     return build.load("posit_gemm", _SIGNATURES)
+
+
+def _large_lib():
+    return build.load("posit_gemm_large", _LARGE_SIGNATURES)
 
 
 # Storage kind of a packed p8 B operand, two codes a uint16 (csrc/posit_gemm.cu kP8x2)
@@ -68,8 +91,30 @@ def uses_tensor_cores(a_kind: int, b_kind: int, bf16_compute: bool) -> bool:
     return bf16_compute and b_kind in (1, 2, 3, PACKED_KIND) and a_kind in (0, 1, 2)
 
 
-def launch_counter(b_kind: int, tensor_cores: bool) -> str:
+def large_shape_ok(N: int, K: int) -> bool:
+    """The shapes the large-M kernels take, whatever the B kind: their copies
+    need N to be a multiple of 16 (16-byte pieces of a row of p8 codes) and
+    K of 8 (A's bf16 rows 16-byte aligned for the TMA; a packed B's high
+    slice of A, at column K / 2, aligned for the f32-FMA tile's vector
+    loads); ``posit_gemm_large_launch`` refuses anything else."""
+    return K > 0 and N % 16 == 0 and K % 8 == 0
+
+
+def gemm_route(M: int, N: int, K: int, a_kind: int, b_kind: int, bf16_compute: bool,
+               aligned: bool = True) -> str:
+    """The kernel a GEMM launches: "large_tc" or "large_fma" above ``LARGE_M``
+    rows for a shape the large-M kernels take, with A and B 16-byte aligned
+    (``aligned``); else "tc" or "fma", the kernels of csrc/posit_gemm.cu."""
+    tc = uses_tensor_cores(a_kind, b_kind, bf16_compute)
+    if M > LARGE_M and aligned and large_shape_ok(N, K):
+        return "large_tc" if tc else "large_fma"
+    return "tc" if tc else "fma"
+
+
+def launch_counter(b_kind: int, tensor_cores: bool, large: bool = False) -> str:
     """The ``kernels.LAUNCHES`` key a launch of this B kind and datapath adds to."""
+    if large:
+        return "posit_gemm_large_tc" if tensor_cores else "posit_gemm_large_fma"
     if b_kind == PACKED_KIND:
         return "posit_gemm_packed" if tensor_cores else "posit_gemm_packed_fma"
     return "posit_gemm_p16" if b_kind == 3 and tensor_cores else "posit_gemm"
@@ -126,6 +171,48 @@ def fma_split_plan(M: int, N: int, K: int, sms: int) -> tuple[int, int]:
     bk = 32 if M <= 8 else 16
     k_per_split = -(-(-(-K // splits)) // bk) * bk
     return -(-K // k_per_split), k_per_split
+
+
+@dataclasses.dataclass(frozen=True)
+class LargePlan:
+    """The large-M kernels' grid: ``tiles_m`` x ``tiles_n`` output tiles, each
+    in ``splits`` K splits (blockIdx.z) of ``k_per_split`` (64-row blocks of
+    B on the tensor cores, rows of B on the f32-FMA tile); split s takes
+    [s * k_per_split, (s + 1) * k_per_split), the last one cut at the end.
+    With more than one split the parts go to an f32 buffer that a second
+    kernel sums in split order."""
+    tiles_m: int
+    tiles_n: int
+    splits: int
+    k_per_split: int
+
+
+def large_split_plan(M: int, N: int, kb: int, sms: int, tensor_cores: bool) -> LargePlan:
+    """K splits only where the tiles fill less than a wave: one block an SM
+    for the wgmma kernel (at least 8 blocks of 64 rows a split), two for the
+    f32-FMA tile (at least 128 rows a split, a multiple of its 8-row
+    stage). At M = 4,096 and the training shapes every tile takes one split,
+    so the FMA tile sums each output in ``gemm_kernel``'s order."""
+    if tensor_cores:
+        tm, tn = -(-M // LARGE_TC_ROWS), -(-N // LARGE_TC_COLS)
+        span = -(-kb // LARGE_TC_STEP)
+        splits = max(1, min(sms // (tm * tn), span // 8))
+        kps = -(-span // splits)
+    else:
+        tm, tn = -(-M // LARGE_FMA_TILE), -(-N // LARGE_FMA_TILE)
+        span = kb
+        splits = max(1, min(-(-2 * sms // (tm * tn)), kb // 128))
+        kps = -(-(-(-kb // splits)) // LARGE_FMA_STEP) * LARGE_FMA_STEP
+    return LargePlan(tm, tn, -(-span // kps), kps)
+
+
+def large_plan(M: int, N: int, K: int, b_kind: int, sms: int, tensor_cores: bool) -> LargePlan:
+    """The plan of a large-M launch: the wgmma kernel reads every B as (K, N)
+    bf16 (a posit B decoded once for the call, a packed one unpacked), so
+    its splits walk K rows; the f32-FMA tile reads B as it is, ceil(K/2)
+    rows of a packed B."""
+    kb = -(-K // 2) if b_kind == PACKED_KIND and not tensor_cores else K
+    return large_split_plan(M, N, kb, sms, tensor_cores)
 
 
 def posit_gemm(
@@ -187,7 +274,31 @@ def posit_gemm(
     sms = _sm_count(a.device.index or 0)
     stream = stream_handle(a)
     counters = None
-    tensor_cores = uses_tensor_cores(a_kind, b_kind, compute_dtype == torch.bfloat16)
+    bf16 = compute_dtype == torch.bfloat16
+    tensor_cores = uses_tensor_cores(a_kind, b_kind, bf16)
+    aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if gemm_route(M, N, K, a_kind, b_kind, bf16, aligned).startswith("large"):
+        plan = large_plan(M, N, K, b_kind, sms, tensor_cores)
+        partial = (torch.empty((plan.splits, M, N), dtype=torch.float32, device=a.device)
+                   if plan.splits > 1 else None)
+        # the wgmma kernel reads A and B as bf16: f32 and p8 A, and posit B,
+        # are rounded or decoded into these buffers first, inside the launch
+        a16 = (torch.empty((M, K), dtype=torch.bfloat16, device=a.device)
+               if tensor_cores and a_kind != 1 else None)
+        b16 = (torch.empty((K, N), dtype=torch.bfloat16, device=a.device)
+               if tensor_cores and b_kind != 1 else None)
+        rc = _large_lib().posit_gemm_large_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if a16 is None else a16.data_ptr(),
+            None if b16 is None else b16.data_ptr(),
+            M, N, K, a_kind, b_kind, out_kind, es[0], es[1], es[2], _ACT[activation],
+            int(bf16), plan.splits, plan.k_per_split, stream)
+        check_rc(rc, "posit_gemm_large")
+        kernels.LAUNCHES[launch_counter(b_kind, tensor_cores, large=True)] += 1
+        return out
     if tensor_cores:
         plan = split_plan(M, N, kb, sms, b_kind)
         grid, k_per_split = plan.grid, 0
@@ -206,7 +317,7 @@ def posit_gemm(
         None if partial is None else partial.data_ptr(),
         None if counters is None else counters.data_ptr(),
         M, N, K, a_kind, b_kind, out_kind, es[0], es[1], es[2], _ACT[activation],
-        int(compute_dtype == torch.bfloat16), grid, k_per_split, stream)
+        int(bf16), grid, k_per_split, stream)
     check_rc(rc, "posit_gemm")
     kernels.LAUNCHES[launch_counter(b_kind, tensor_cores)] += 1
     return out

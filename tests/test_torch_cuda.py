@@ -746,3 +746,125 @@ def test_train_steps_on_card_match_cpu(dev):
 
     res = check_train_reduced()
     assert res["worst"]["code_diff"] <= 1 and len(res["runs"]) == 4
+
+
+# the large-M kernels (csrc/posit_gemm_large.cu): (B format, compute, packed)
+LARGE_KINDS = [(P8_1, torch.bfloat16, False), (P8_2, torch.bfloat16, True),
+               (P16_1, torch.bfloat16, False), (BF16, torch.bfloat16, False),
+               (F32, torch.float32, False), (BF16, torch.float32, False),
+               (P8_0, torch.float32, False), (P16_1, torch.float32, False),
+               (P8_3, torch.float32, True)]
+
+
+def _large_operands(dev, M, K, N, b_fmt, packed, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn((M, K), generator=g, device=dev)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    b = (w if b_fmt == F32 else w.to(torch.bfloat16) if b_fmt == BF16
+         else codec_ops.encode(w, b_fmt.es, nbits=b_fmt.nbits))
+    bvals = b.float() if b_fmt in (F32, BF16) else codec_ref.decode_ref(b, b_fmt.es,
+                                                                         nbits=b_fmt.nbits)
+    bias = torch.randn((N,), generator=g, device=dev)
+    res = torch.randn((M, N), generator=g, device=dev)
+    return a, pack_p8(b) if packed else b, bvals, bias, res
+
+
+@pytest.mark.parametrize("act", ["none", "gelu", "silu", "relu"])
+@pytest.mark.parametrize("M,K,N", [(65, 1032, 1008), (129, 528, 272), (4033, 1024, 1008)])
+@pytest.mark.parametrize("b_fmt,cd,packed", LARGE_KINDS,
+                         ids=lambda v: str(v).split(".")[-1] if not isinstance(v, bool) else
+                         ("packed" if v else "unpacked"))
+def test_large_m_gemm_matches_plain(dev, b_fmt, cd, packed, M, K, N, act):
+    """Past LARGE_M rows every B kind under both computes goes to the large-M
+    kernels (wgmma for the tensor-core pairs, the 128 x 128 FMA tile for the
+    rest), counted under their own key, within the GEMM bound
+    2*K*u*(|A|@|B| + |bias|) + 8*u*(|y| + |res|) of the plain version on the
+    values the products see, at ragged M, N and K; two calls give the same
+    bits."""
+    from repro_torch.kernels.posit_gemm import ops as gemm_ops
+
+    a, b, bvals, bias, res = _large_operands(dev, M, K, N, b_fmt, packed, M + K + N)
+    es = (0, getattr(b_fmt, "es", 0), 0)
+    kw = dict(a_fmt=F32, b_fmt=b_fmt, out_fmt=F32, bias=bias, residual=res, activation=act,
+              compute_dtype=cd, b_packed=packed)
+    tc = cd == torch.bfloat16 and b_fmt != F32
+    key = "posit_gemm_large_tc" if tc else "posit_gemm_large_fma"
+    assert M > gemm_ops.LARGE_M
+    before = kernels.LAUNCHES[key]
+    got = posit_gemm(a, b, es, **kw)
+    assert kernels.LAUNCHES[key] == before + 1
+    want = posit_gemm_ref(a, b, es, **kw)
+    if cd == torch.bfloat16:
+        bvals = bvals.to(torch.bfloat16).float()
+    tol = 2 * K * U * (a.to(cd).float().abs() @ bvals.abs() + bias.abs()) \
+        + 8 * U * (want.abs() + res.abs())
+    assert ((got - want).abs() <= tol).all()
+    again = posit_gemm(a, b, es, **kw)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("cd,b_fmt", [(torch.bfloat16, P8_0), (torch.float32, P16_1)])
+def test_large_m_gemm_posit_out_within_one_ulp(dev, cd, b_fmt):
+    """p8 activations and p8 output past LARGE_M (wgmma), p16 out under f32
+    compute (the FMA tile): within one posit ulp of the plain version."""
+    M, K, N = 257, 1024, 1008
+    a, b, _, bias, res = _large_operands(dev, M, K, N, b_fmt, False, 5)
+    out = P8_2 if cd == torch.bfloat16 else P16_1
+    a_fmt = P8_0 if cd == torch.bfloat16 else F32
+    if a_fmt == P8_0:
+        a = codec_ops.encode(a, 0, nbits=8)
+    kw = dict(a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out, bias=bias, residual=res,
+              activation="silu", compute_dtype=cd)
+    es = (0, b_fmt.es, out.es)
+    got = posit_gemm(a, b, es, **kw).to(torch.int32)
+    want = posit_gemm_ref(a, b, es, **kw).to(torch.int32)
+    n = out.nbits
+    d = (got - want) & ((1 << n) - 1)
+    assert int(torch.minimum(d, (1 << n) - d).max()) <= 1
+
+
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_float_linear_checkpoint_same_gradients(dev, cd):
+    """``FloatLinear`` on the large-M kernels under ``torch.utils.checkpoint``
+    (the train step's remat, which runs the forward twice) gives the same
+    output and gradients, bit for bit, as without it."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels.posit_gemm.ops import float_linear
+
+    M, K, N = 1024, 512, 768
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn((M, K), generator=g, device=dev)
+    w = (torch.randn((K, N), generator=g, device=dev) * K ** -0.5).to(cd)
+    bias, r, dy = (torch.randn(s, generator=g, device=dev) for s in ((N,), (M, N), (M, N)))
+
+    def run(remat):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias, r)]
+        fn = lambda *t: float_linear(t[0], t[1], compute_dtype=cd, bias=t[2],  # noqa: E731
+                                     residual=t[3], activation="silu")
+        y = checkpoint(fn, *leaves, use_reentrant=False) if remat else fn(*leaves)
+        y.backward(dy)
+        return [y.detach()] + [t.grad for t in leaves]
+
+    for got, want in zip(run(True), run(False)):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,K,N,packed", [(65, 1028, 1008, True), (130, 1024, 1000, False)])
+def test_large_m_refused_shapes_take_the_64_row_tiles(dev, M, K, N, packed):
+    """Past LARGE_M rows a shape the large-M kernels refuse (K not a multiple
+    of 8, N not a multiple of 16) runs on the parent's
+    tensor-core kernel, counted under its key, within the GEMM bound of the
+    plain version."""
+    a, b, bvals, bias, res = _large_operands(dev, M, K, N, P8_2, packed, M + K)
+    kw = dict(a_fmt=F32, b_fmt=P8_2, out_fmt=F32, bias=bias, residual=res,
+              activation="gelu", compute_dtype=torch.bfloat16, b_packed=packed)
+    key = "posit_gemm_packed" if packed else "posit_gemm"
+    before = dict(kernels.LAUNCHES)
+    got = posit_gemm(a, b, (0, 2, 0), **kw)
+    assert kernels.LAUNCHES[key] == before[key] + 1
+    assert kernels.LAUNCHES["posit_gemm_large_tc"] == before["posit_gemm_large_tc"]
+    want = posit_gemm_ref(a, b, (0, 2, 0), **kw)
+    tol = 2 * K * U * (a.to(torch.bfloat16).float().abs() @ bvals.abs() + bias.abs()) \
+        + 8 * U * (want.abs() + res.abs())
+    assert ((got - want).abs() <= tol).all()
