@@ -15,6 +15,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      +-minpos, their decode rows bit for bit the same at M = 1, 4 and 8, and
      every p16 code at es 0-3 through one-hot rows bit for bit the plain
      version's bf16 rounding;
+     from 9 to 64 rows on the tensor-core pairs the mid-M kernel
+     (``posit_gemm_mid.cu``): p8 at every qwen2.5-14b shape at M = 16, 32
+     and 64, packed p8 and p16 at the attention projections' shapes at M =
+     16 and 32 (and every p16 code at M = 16), each within the same bound,
+     counted under ``posit_gemm_mid_tc``, two calls bit for bit the same,
+     rows 0-8 bit for bit the same at M = 9, 16, 32 and 64; the ragged
+     shapes it refuses (N not a multiple of 16) on the 64-row tile;
      the GEMM's packed-p8 variants (tensor cores under bf16 compute, f32 FMA
      under f32) at every qwen2.5-14b linear shape, M = 8 and 64, against
      the packed plain version and against the unpacked kernel on
@@ -82,7 +89,9 @@ Phases, in order; any failure raises and the script exits non-zero:
        and 32 generated, S_max 1,056, pages of 32,768 B (16 tokens), served
        by the slot grid and the paged engine at 4 slots (the pool the
        grid's bytes, 264 blocks) and at 16 slots (the same 264 blocks):
-       paged and grid bit for bit at both, 15 prefix hits of 912 tokens,
+       paged and grid bit for bit at both, every 16-slot decode step's 337
+       linears on the mid-M kernel and none on the 64-row tile, 15 prefix
+       hits of 912 tokens,
        all 16 admitted at once at 16 slots, a fork's two streams equal
        through copy-on-write, no dense attention launch, the prefills on
        the wgmma kernel (``run_paged_path``);
@@ -130,7 +139,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``posit_decode`` and the backward's products) (``run_train_path``);
   6. each kernel timed at its path's shape beside its bound, its plain
      version and, where one exists, a single PyTorch call; the GEMM also at
-     every decode and prefill (M = 64) shape of qwen2.5-14b, its packed
+     every decode (M = 4, and M = 16 and 32 on the mid-M kernel) and prefill
+     (M = 64) shape of qwen2.5-14b, its packed
      variants there beside the unpacked kernel, the p16 weights (tensor
      cores under bf16 compute, f32 FMA under f32) at the attention
      projections' decode and prefill shapes, the quire GEMM at every phi3
@@ -415,7 +425,9 @@ def gemm_cases():
     dtype]); the compute dtype defaults to bf16 for p8 and bf16 weights, f32
     for p16 and f32 ones."""
     cases = []
-    for M in (1, 4, 64):
+    # 16 and 32 rows: the 16-slot decode step and its neighbours, on the
+    # mid-M kernel (csrc/posit_gemm_mid.cu), like the 64-token prefill's 64
+    for M in (1, 4, 16, 32, 64):
         for K, N in GEMM_KN:
             bias = (K, N) in ((5120, 5120), (5120, 1024))         # q / k / v
             act = "silu" if (K, N) == (5120, 13824) else "none"   # gate
@@ -482,6 +494,18 @@ def gemm_cases():
     return cases
 
 
+def gemm_key(M, N, K, a_fmt, b_fmt, cd, packed=False) -> str:
+    """The ``kernels.LAUNCHES`` key an aligned CUDA call of this shape adds to
+    (``ops.gemm_route`` and ``ops.launch_counter``)."""
+    a_kind, b_kind = gemm_ops._kind(a_fmt)[0], gemm_ops._kind(b_fmt, packed)[0]
+    bf16 = cd == torch.bfloat16
+    route = gemm_ops.gemm_route(M, N, K, a_kind, b_kind, bf16)
+    tc = gemm_ops.uses_tensor_cores(a_kind, b_kind, bf16)
+    if route == "mid_tc":
+        return gemm_ops.launch_counter(b_kind, tc, mid=True)
+    return gemm_ops.launch_counter(b_kind, tc, large=route.startswith("large"))
+
+
 def make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, residual, seed=0):
     """a_dtype: a float dtype, or a p8 format for posit-coded activations."""
     g = gen(seed)
@@ -505,22 +529,30 @@ def operand_values(x: torch.Tensor, fmt) -> torch.Tensor:
 
 def check_gemm_batch_invariance() -> dict:
     """The decode path as the model calls it (f32 activations, p8 weights,
-    bf16 compute): row i of the result at M = 1 and 4 is bit for bit row i
-    at M = 8, at every decode shape, epilogue included."""
-    differing = 0
+    bf16 compute), epilogue included, at every decode shape: row i of the
+    result at M = 1 and 4 is bit for bit row i at M = 8 (the decode tile);
+    rows 0-8 at M = 9, 16 and 32 are bit for bit rows 0-8 at M = 64 (the
+    mid-M kernel, whose plan does not depend on M: its 16-, 32- and 64-row
+    wgmma sum each output alike)."""
+    differing, mid_differing = 0, 0
     for K, N in GEMM_KN:
-        a, b, bi, r = make_gemm_inputs(8, K, N, P8_0, torch.float32, True, True, seed=10)
+        a, b, bi, r = make_gemm_inputs(64, K, N, P8_0, torch.float32, True, True, seed=10)
         kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, compute_dtype=torch.bfloat16,
                   activation="silu")
-        full = bits(posit_gemm(a, b, (0, 0, 0), bias=bi, residual=r, **kw))
+        out = {M: bits(posit_gemm(a[:M].contiguous(), b, (0, 0, 0), bias=bi,
+                                  residual=r[:M].contiguous(), **kw))
+               for M in (1, 4, 8, 9, 16, 32, 64)}
         for M in (1, 4):
-            part = bits(posit_gemm(a[:M].contiguous(), b, (0, 0, 0), bias=bi,
-                                   residual=r[:M].contiguous(), **kw))
-            differing += int((part != full[:M]).sum())
-        del a, b, bi, r, full
+            differing += int((out[M] != out[8][:M]).sum())
+        for M in (9, 16, 32):
+            mid_differing += int((out[M][:9] != out[64][:9]).sum())
+        del a, b, bi, r, out
     torch.cuda.empty_cache()
     assert differing == 0, f"GEMM decode rows depend on the batch: {differing} values differ"
-    return {"shapes": len(GEMM_KN), "rows": (1, 4, 8), "differing_values": differing}
+    assert mid_differing == 0, \
+        f"mid-M GEMM rows depend on the batch: {mid_differing} values differ"
+    return {"shapes": len(GEMM_KN), "rows": (1, 4, 8), "differing_values": differing,
+            "mid_rows": (9, 16, 32, 64), "mid_differing_values": mid_differing}
 
 
 def gemm_plain(a, b, bi, r, kw, chunk=16384):
@@ -564,8 +596,9 @@ def check_gemm() -> dict:
     worst = 0.0
     worst_ratio = 0.0
     rows = []
-    large_launches, repeat_differing = 0, 0
-    worst_large = {"posit_gemm_large_tc": 0.0, "posit_gemm_large_fma": 0.0}
+    large_launches, mid_launches, repeat_differing = 0, 0, 0
+    worst_large = {"posit_gemm_large_tc": 0.0, "posit_gemm_large_fma": 0.0,
+                   "posit_gemm_mid_tc": 0.0}
     for name, M, K, N, b_fmt, a_dtype, out_fmt, bias, act, res, *cd in gemm_cases():
         a, b, bi, r = make_gemm_inputs(M, K, N, b_fmt, a_dtype, bias, res)
         a_fmt = (a_dtype if isinstance(a_dtype, PositFmt)
@@ -578,14 +611,13 @@ def check_gemm() -> dict:
         before = dict(kernels.LAUNCHES)
         got = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
                          bias=bi, residual=r, activation=act, compute_dtype=cd)
-        if M > gemm_ops.LARGE_M:
-            # the large-M kernels, each launch under its own key; a second
-            # call gives the same bits
-            key = "posit_gemm_large_tc" if gemm_ops.uses_tensor_cores(
-                gemm_ops._kind(a_fmt)[0], gemm_ops._kind(b_fmt)[0],
-                cd == torch.bfloat16) else "posit_gemm_large_fma"
-            assert kernels.LAUNCHES[key] == before[key] + 1, (name, key)
-            large_launches += 1
+        # every launch under its route's key
+        key = gemm_key(M, N, K, a_fmt, b_fmt, cd)
+        assert kernels.LAUNCHES[key] == before[key] + 1, (name, key)
+        if key in worst_large:
+            # the large-M and mid-M kernels: a second call gives the same bits
+            large_launches += key != "posit_gemm_mid_tc"
+            mid_launches += key == "posit_gemm_mid_tc"
             again = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=out_fmt,
                                bias=bi, residual=r, activation=act, compute_dtype=cd)
             repeat_differing += int((raw_bits(again) != raw_bits(got)).sum())
@@ -596,22 +628,25 @@ def check_gemm() -> dict:
                 lambda sl: operand_values(b[:, sl].contiguous(), b_fmt), cd, K, bi, r)
             worst = max(worst, c["max_abs_err"])
             worst_ratio = max(worst_ratio, c["err_over_bound"])
-            if M > gemm_ops.LARGE_M:
+            if key in worst_large:
                 worst_large[key] = max(worst_large[key], c["max_abs_err"])
-            rows.append({"case": name, **c})
+            rows.append({"case": name, "key": key, **c})
         else:
             # posit out: the f32 sums may round to neighbouring codes
             n = out_fmt.nbits
             d = (got.to(torch.int32) - want.to(torch.int32)) & ((1 << n) - 1)
             ulp = int(torch.minimum(d, (1 << n) - d).max())
             assert ulp <= 1, f"GEMM {name}: {ulp} posit ulps apart"
-            rows.append({"case": name, "max_code_ulps": ulp})
+            rows.append({"case": name, "key": key, "max_code_ulps": ulp})
         del a, b, bi, r, got, want
     torch.cuda.empty_cache()
-    assert repeat_differing == 0, f"large-M GEMM: {repeat_differing} values differ between calls"
+    assert repeat_differing == 0, \
+        f"large- or mid-M GEMM: {repeat_differing} values differ between calls"
+    assert mid_launches > 0, "no GEMM case ran on the mid-M kernel"
     DETAILS["gemm_checks"] = rows
     return {"cases": len(rows), "max_abs_err": worst, "max_err_over_bound": worst_ratio,
-            "large_m_cases": large_launches, "large_m_repeat_differing": repeat_differing,
+            "large_m_cases": large_launches, "mid_m_cases": mid_launches,
+            "large_mid_repeat_differing": repeat_differing,
             "large_m_max_abs_err": worst_large}
 
 
@@ -619,21 +654,26 @@ def check_packed_gemm() -> dict:
     """The packed-p8 variants as the layers call them (f32 activations,
     packed p8_0 lanes, the epilogue of each projection): tensor cores under
     bf16 compute, f32 FMA under f32, at every qwen2.5-14b linear shape at
-    M = 8 and 64, each against the packed plain version and against the
-    unpacked kernel on ``unpack_p8`` of the same codes (``check_gemm``'s
-    bound), its rows at M = 1 and 4 bit for bit rows of M = 8, and every
-    launch counted under its own variant; and at M = 130 and 1,024 (q/o,
-    gate/up) through the large-M kernels, counted under theirs."""
+    M = 8 and 64 (bf16 at 64: the mid-M kernel), and under bf16 at M = 16
+    and 32 at the attention projections' shapes (the mid-M kernel), each
+    against the packed plain version and against the unpacked kernel on
+    ``unpack_p8`` of the same codes (``check_gemm``'s bound), its rows at M =
+    1 and 4 bit for bit rows of M = 8, and every launch counted under its
+    route's key (``gemm_key``); and at M = 130 and 1,024 (q/o, gate/up)
+    through the large-M kernels, counted under theirs."""
     # imported here: kernel_timings.py imports this module with older packages
     from repro_torch.core.pack import pack_p8, unpack_p8
 
     rows, worst, worst_ratio, differing = [], 0.0, 0.0, 0
-    for cd, counter in ((torch.bfloat16, "posit_gemm_packed"),
-                        (torch.float32, "posit_gemm_packed_fma")):
-        for M in (8, 64, 130, 1024):
-            # M = 130 and 1,024: the large-M kernels (B unpacked to bf16 once
-            # for the call on wgmma), at the q/o and gate/up shapes
-            for K, N in GEMM_KN if M <= 64 else GEMM_KN[:3:2]:
+    for cd in (torch.bfloat16, torch.float32):
+        for M in (8, 16, 32, 64, 130, 1024):
+            # M = 16 and 32 (bf16 compute: the mid-M kernel) at the attention
+            # projections' shapes; M = 130 and 1,024: the large-M kernels (B
+            # unpacked to bf16 once for the call on wgmma), at the q/o and
+            # gate/up shapes
+            if M in (16, 32) and cd != torch.bfloat16:
+                continue
+            for K, N in (P16_KN if M in (16, 32) else GEMM_KN if M <= 64 else GEMM_KN[:3:2]):
                 bias = (K, N) in ((5120, 5120), (5120, 1024))
                 act = "silu" if (K, N) == (5120, 13824) else "none"
                 res = (K, N) in ((13824, 5120), (5120, 5120))
@@ -644,8 +684,7 @@ def check_packed_gemm() -> dict:
                           compute_dtype=cd)
                 before = dict(kernels.LAUNCHES)
                 got = posit_gemm(a, bp, (0, 0, 0), bias=bi, residual=r, b_packed=True, **kw)
-                key = (counter if M <= gemm_ops.LARGE_M else "posit_gemm_large_tc"
-                       if cd == torch.bfloat16 else "posit_gemm_large_fma")
+                key = gemm_key(M, N, K, F32, P8_0, cd, packed=True)
                 assert kernels.LAUNCHES[key] == before[key] + 1, key
                 assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"]
                 b = unpack_p8(bp, K).contiguous()
@@ -661,7 +700,7 @@ def check_packed_gemm() -> dict:
                     return codec_ops.decode(b[:, sl].contiguous(), 0, nbits=8)
 
                 name = f"packed {'tc' if cd == torch.bfloat16 else 'fma'} M{M} {K}x{N}"
-                row = {"case": name}
+                row = {"case": name, "key": key}
                 for ref_name, want in (("plain", plain), ("unpacked_kernel", unpacked)):
                     c = gemm_bound_check(f"{name} vs {ref_name}", got, want, a, bvals, cd, K,
                                          bi, r)
@@ -687,14 +726,17 @@ def check_packed_gemm() -> dict:
 def check_p16_gemm() -> dict:
     """p16 weights on the tensor cores, as the mixed path calls them (bf16
     compute; f32 activations and each projection's epilogue: bias on q/k/v,
-    the residual on o): at both qwen p16 shapes, M = 1, 4, 8 and 64, and
+    the residual on o): at both qwen p16 shapes, M = 1, 4, 8, 16, 32 and 64
+    (past 8 rows on the mid-M kernel), and
     with bf16 and p8 activations at M = 4 and 64, against the plain version
     within ``check_gemm``'s bound; on every non-NaR code drawn uniformly,
     and on Gaussian codes with +-maxpos and +-minpos, likewise; rows at M =
     1 and 4 bit for bit rows of M = 8; and every p16 code at es 0-3 through
-    one-hot activation rows (M = 8 and 64, one k step), where the kernel's
-    result is the bf16 rounding of the decoded code itself: bit for bit the
-    plain version's. Every launch counts under ``posit_gemm_p16``.
+    one-hot activation rows (M = 8, 16 and 64, one k step), where the
+    kernel's result is the bf16 rounding of the decoded code itself: bit for
+    bit the plain version's. Every launch counts under ``posit_gemm_p16``,
+    or past 8 rows on a shape the mid-M kernel takes under
+    ``posit_gemm_mid_tc``.
     ``max_abs_err`` is over the Gaussian cases; the wide-span ones, whose
     sums reach 2^28, report theirs apart."""
     rows, worst, edge_worst, worst_ratio, differing, exact_mismatch = [], 0.0, 0.0, 0.0, 0, 0
@@ -706,7 +748,9 @@ def check_p16_gemm() -> dict:
         before = dict(kernels.LAUNCHES)
         got = posit_gemm(a, b, kw["es"], a_fmt=a_fmt, b_fmt=P16_1, out_fmt=F32, bias=bi,
                          residual=r, activation=act, compute_dtype=cd)
-        assert kernels.LAUNCHES["posit_gemm_p16"] == before["posit_gemm_p16"] + 1, name
+        key = gemm_key(a.shape[0], b.shape[1], a.shape[1], a_fmt, P16_1, cd)
+        assert key in ("posit_gemm_p16", "posit_gemm_mid_tc"), (name, key)
+        assert kernels.LAUNCHES[key] == before[key] + 1, name
         assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"], name
         return got, gemm_plain(a, b, bi, r, kw)
 
@@ -725,7 +769,7 @@ def check_p16_gemm() -> dict:
 
     for K, N in P16_KN:
         bias, res = True, (K, N) == (5120, 5120)
-        for M in (1, 4, 8, 64):
+        for M in (1, 4, 8, 16, 32, 64):
             a, b, bi, r = make_gemm_inputs(M, K, N, P16_1, torch.float32, bias, res, seed=13)
             got, want = run(f"p16 tc M{M} {K}x{N}", a, F32, b, 1, bi, r)
             bounded(f"p16 tc M{M} {K}x{N}", got, want, a, F32, b, K, bi, r)
@@ -756,9 +800,12 @@ def check_p16_gemm() -> dict:
     codes = torch.arange(1 << 16, device=DEV, dtype=torch.int32)
     codes = torch.cat([codes[codes != 0x8000], codes.new_zeros(1)])
     for es in range(4):
-        for M in (8, 64):
-            b = torch.cat([codes.reshape(M, -1), codes.new_zeros((M, 8))], dim=1)
-            b[0, -8] = 0x8000
+        for M in (8, 16, 64):
+            # M = 16 pads to a column count the mid-M kernel takes (M = 64's
+            # 1,032 columns stay on the 64-row tile)
+            pad = 16 if M == 16 else 8
+            b = torch.cat([codes.reshape(M, -1), codes.new_zeros((M, pad))], dim=1)
+            b[0, -pad] = 0x8000
             b = b.to(torch.uint16).contiguous()
             a = torch.eye(M, device=DEV)
             got, want = run(f"p16 every code es{es} M{M}", a, F32, b, es)
@@ -1301,7 +1348,9 @@ def run_main_path() -> tuple[dict, dict]:
                    gen=16, seed=0, device="cuda", emit=events.append)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    for name in P8_PATH_KERNELS:
+    # the 64-token prefills' linears (M = 64) run on the mid-M kernel
+    # (kernel_timings.py serves this path with older packages too)
+    for name in P8_PATH_KERNELS + tuple(k for k in ("posit_gemm_mid_tc",) if k in launches):
         assert launches[name] > 0, f"kernel {name} was not launched on the main path"
     assert report["requests"] == 8, report["requests"]
     assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
@@ -1516,8 +1565,9 @@ def run_paged_path() -> tuple[dict, dict]:
     16 are admitted at once (one wave of 31 steps) and none ends
     ``cache_full``; no paged run launches the dense attention kernel, its
     decode steps 48 paged launches each, and its only encodes are the
-    prefills' K/V blocks. Then a fork of a live request streams as the
-    request alone, through copy-on-write."""
+    prefills' K/V blocks. At 16 slots every decode step launches the mid-M
+    GEMM 337 times and the 64-row tile never. Then a fork of a live request
+    streams as the request alone, through copy-on-write."""
     from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine as Paged
 
     model = build_model(QWEN)
@@ -1551,6 +1601,15 @@ def run_paged_path() -> tuple[dict, dict]:
             assert la["posit_attention"] == 0, f"paged path {name}: dense attention launched"
             assert la["posit_attention_paged"] == res["decode_steps"] * QWEN.n_layers, la
             assert la["posit_encode"] == PAGED_REQUESTS * 2 * QWEN.n_layers, la
+        if slots == 16 and "posit_gemm_mid_tc" in kernels.LAUNCHES:
+            # every decode step's 337 linears (7 a layer and lm_head, M = 16)
+            # on the mid-M kernel; the only other GEMM launches are the
+            # prefills' last-row lm_head (M = 1, the decode tile), one a
+            # request: no 64-row tile
+            la = res["launches"]
+            assert la["posit_gemm_mid_tc"] == res["decode_steps"] * (7 * QWEN.n_layers + 1), \
+                (name, la, res["decode_steps"])
+            assert la["posit_gemm"] == PAGED_REQUESTS, (name, la)
         if name == "paged16":
             fork = fork_streams(eng, reqs()[0], res["tokens"][0])
         runs[name] = res
@@ -1702,14 +1761,17 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
     by_name = sorted(((n, us, c) for n, (us, c) in totals.items()), key=lambda r: -r[1])
     busy_us = sum(us for _, us, _ in by_name)
     epilogue_calls = sum(c for n, _, c in by_name if "splitk_epilogue" in n)
-    # the GEMM's datapaths by kernel name: tensor cores, and the f32-FMA
-    # decode (M <= 8) and tile kernels; the packed variants are the
-    # templates whose B kind is 4
+    # the GEMM's datapaths by kernel name: tensor cores (the decode and
+    # 64-row tiles, the mid-M kernel), and the f32-FMA decode (M <= 8) and
+    # tile kernels; the packed variants are the templates whose B kind is 4
     variants, variants_us = {}, {}
     for n, us, c in by_name:
-        m = re.search(r"(tc_gemm_kernel|gemv_kernel|gemm_kernel)<(\d+), (\d+)", n)
-        if m:
-            key = f"{m.group(1)} B kind {m.group(3)}"
+        mid = re.search(r"mid_gemm_kernel<(\d+), (\d+)", n)
+        m = None if mid else re.search(r"(tc_gemm_kernel|gemv_kernel|gemm_kernel)<(\d+), (\d+)",
+                                       n)
+        if m or mid:
+            key = (f"{m.group(1)} B kind {m.group(3)}" if m
+                   else f"mid_gemm_kernel B kind {mid.group(1)}")
             variants[key] = variants.get(key, 0) + c / steps
             variants_us[key] = variants_us.get(key, 0.0) + us / steps
     # the gather / index_put kernels (a KV write outside the attention kernel)
@@ -2822,6 +2884,17 @@ def time_kernels(launches: dict, errs: dict) -> list:
                 "src/repro/kernels/posit_gemm/posit_gemm.py:244", sh["ms"], sh["plain_ms"],
                 sh["bytes"], 2 * 4 * sh["K"] * sh["N"], "bf16", sh["library_ms"])
     DETAILS["gemm_decode_shapes"] = shapes
+    # the mid-M kernel: the 16-slot decode step's gate/up projection (M =
+    # 16); every 16- and 32-row decode shape and the 64-token prefill's go
+    # to the details
+    shapes = gemm_timings(16, GEMM_KN, plain=True)
+    for sh in shapes:
+        if (sh["K"], sh["N"]) == (5120, 13824):
+            row("posit_gemm_mid_tc", "src/repro_torch/csrc/posit_gemm_mid.cu",
+                "src/repro/kernels/posit_gemm/posit_gemm.py:244", sh["ms"], sh["plain_ms"],
+                sh["bytes"], 2 * 16 * sh["K"] * sh["N"], "bf16", sh["library_ms"])
+    DETAILS["gemm_mid16_shapes"] = shapes
+    DETAILS["gemm_mid32_shapes"] = gemm_timings(32, GEMM_KN)
     DETAILS["gemm_prefill_shapes"] = gemm_timings(64, GEMM_KN[:-1])
     # the packed variants: the gate/up projection at 4 slots, tensor cores
     # (bf16 compute, the mixed path's) and f32 FMA; every decode and prefill
@@ -3080,6 +3153,12 @@ def main() -> int:
     pg16_prof = profile_decode(engine=PagedContinuousBatchingEngine,
                                engine_kw={"page_bytes": PAGED_PAGE_BYTES}, slots=PAGED_REQUESTS)
     log("profile_paged16", **profile_log(pg16_prof))
+    # its linears (M = 16) on the mid-M kernel, 337 a step, no 64-row tile
+    assert pg16_prof["launches_per_step"]["posit_gemm_mid_tc"] == 7 * QWEN.n_layers + 1, \
+        pg16_prof["launches_per_step"]
+    assert pg16_prof["launches_per_step"]["posit_gemm"] == 0, pg16_prof["launches_per_step"]
+    assert pg16_prof["gemm_kernels_per_step"].get("mid_gemm_kernel B kind 2") == \
+        7 * QWEN.n_layers + 1, pg16_prof["gemm_kernels_per_step"]
     assert_kv_write_fused(pg16_prof, QWEN, "paged, 16 slots", attention="posit_attention_paged")
     DETAILS["paged16_decode_profile"] = pg16_prof
     # every profiled path's decode step is one captured graph, bit for bit its

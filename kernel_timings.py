@@ -2,7 +2,7 @@
 decode attention on one NVIDIA GPU, for this checkout's package or for
 another checkout's:
 
-    python3 kernel_timings.py [--src DIR] [--profiles | --attention | --train | --prefill]
+    python3 kernel_timings.py [--src DIR] [--profiles | --attention | --train | --prefill | --mid]
 
 DIR is the ``src`` directory of another checkout, for example the parent
 commit unpacked with ``git archive`` under ``build/`` (which .gitignore
@@ -10,11 +10,13 @@ lists). Run it in turns with this checkout's (parent, change, change,
 parent) in one call on one card to compare two versions. It builds that
 package's codec, GEMM, attention, quire GEMM and softmax kernels, then times, with
 chip_smoke.py's phase-6 functions: the GEMM at every qwen2.5-14b decode
-(M = 4) and prefill (M = 64, no lm_head) shape beside its bound and
-torch.matmul bf16 on the decoded weight; where the package has them, the
+(M = 4, and M = 16 and 32: the 16-slot step and its neighbours) and prefill
+(M = 64, no lm_head) shape beside its bound and torch.matmul bf16 on the
+decoded weight; where the package has them, the
 packed-p8 variants (tensor cores and f32 FMA) at the same shapes beside the
 unpacked kernel and torch.matmul in their compute dtype, and p16 weights
 at the attention projections' decode (M = 4) and prefill (M = 64) shapes,
+(and M = 16)
 under bf16 compute (the tensor cores; the f32-FMA kernels in packages
 before them) and f32 compute (the f32-FMA kernels), beside torch.matmul
 bf16 on the bf16-rounded decoded weight and f32 (TF32 off) and the kernel on
@@ -31,8 +33,10 @@ the paged engine, the paged attention kernel read cold at S = 4,096 with
 pages of 16 and of 1 token beside the dense kernel on the same codes
 (``paged_attention_timings``).
 With --profiles it also profiles one decode step of qwen2.5-14b under
-P8_SERVE and under attn-p16-mlp-p8 over p8-serve, and of phi3-mini-3.8b
-under the quire (chip_smoke.py ``profile_decode``: wall time, device time,
+P8_SERVE and under attn-p16-mlp-p8 over p8-serve, of phi3-mini-3.8b under
+the quire, and, where the package has the paged engine, of qwen2.5-14b
+under P8_SERVE on the paged engine at 16 slots (pages of 16 tokens; the
+GEMM at M = 16) (chip_smoke.py ``profile_decode``: wall time, device time,
 device kernels and the wrappers' launches a step), replayed from the
 engine's captured CUDA graph and run eagerly (under "eager"), so a step's
 before and after come from one card. A package whose engine captures no
@@ -54,6 +58,16 @@ M = 4,032 and 1,024 and the crossover sweep at M = 64 to 512, each route of
 the package forced where it has two, beside torch.matmul), then the long
 context path (4 x 4,032-token prompts, ``run_long_path``) and the paged path
 (``run_paged_path``) for their TTFT.
+With --mid it builds the codec, GEMM (the large- and mid-M kernels where
+the package has them) and attention kernels and times the GEMM across the
+row counts: p8 weights at every qwen2.5-14b shape at M = 4, 16, 32 and 64
+(``gemm_timings``), the prefill shapes at M = 4,032, packed p8 under bf16
+compute at M = 16 and 64, p16 at the attention projections at M = 16 and
+64; then it profiles the paged engine's 16-slot P8_SERVE decode step
+(device time, the GEMM's share, tokens/s), times one eager 64-token
+prefill (wall against device time, ``prefill_ms``) and serves
+chip_smoke.py's main path (8 x (64 + 16) tokens, P8_SERVE, 4 slots) for
+its TTFT: the 64-token prefills' linears are M = 64 GEMMs.
 It checks nothing (chip_smoke.py does) and prints one {"timings": ...} line.
 """
 from __future__ import annotations
@@ -64,6 +78,48 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+
+def prefill_ms(prompt_len: int = 64, reps: int = 5) -> dict:
+    """A qwen2.5-14b P8_SERVE prefill of one ``prompt_len``-token prompt, eager,
+    as the engine admits a request: the wall time (host clock around the
+    call and a synchronize, median of ``reps`` after two warm-up calls)
+    beside its device time (every kernel summed, chip_smoke.py ``time_ms``)
+    and its GEMM launches."""
+    import statistics
+    import time
+
+    import torch
+    import chip_smoke as smoke
+    from repro_torch import kernels
+    from repro_torch.models.registry import build_model
+
+    model = build_model(smoke.QWEN)
+    params = model.init(0, smoke.P8_SERVE)
+    toks = torch.randint(0, smoke.QWEN.vocab, (1, prompt_len), device=smoke.DEV,
+                         generator=torch.Generator(device=smoke.DEV).manual_seed(3),
+                         dtype=torch.int32)
+
+    def call():
+        return model.prefill(params, toks, smoke.P8_SERVE, S_max=prompt_len + 16)
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    before = dict(kernels.LAUNCHES)
+    call()
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+    out = {"prompt_len": prompt_len, "wall_ms": statistics.median(walls), "wall_ms_runs": walls,
+           "device_ms": smoke.time_ms(call, windows=3, calls=1), "launches": launches}
+    del params, model
+    return out
 
 
 def main() -> int:
@@ -93,10 +149,48 @@ def main() -> int:
             res["paged_attention"] = smoke.paged_attention_timings()
         print(json.dumps({"timings": res}))
         return 0
-    large = ("posit_gemm_large",) if "posit_gemm_large" in smoke.build.SOURCES else ()
+    gemm_libs = tuple(n for n in ("posit_gemm_large", "posit_gemm_mid")
+                      if n in smoke.build.SOURCES)
+    keep = ("step_ms", "decode_tok_per_s", "device_busy_us_per_step",
+            "device_idle_share", "launches_per_step", "launches_all_kernels_per_step",
+            "top", "captured", "graph_vs_eager", "gemm_kernels_per_step",
+            "gemm_kernel_us_per_step")
+
+    def paged16() -> dict:
+        from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
+
+        prof = smoke.profile_decode(engine=PagedContinuousBatchingEngine,
+                                    engine_kw={"page_bytes": smoke.PAGED_PAGE_BYTES},
+                                    slots=smoke.PAGED_REQUESTS)
+        out = {k: v for k, v in prof.items() if k in keep}
+        out["eager"] = {k: v for k, v in prof["eager"].items() if k in keep}
+        return out
+
+    if "--mid" in sys.argv:
+        res = {"src": str(src), "nvidia_smi": smi,
+               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *gemm_libs,
+                                                   "posit_attention"))}
+        for M in (4, 16, 32, 64):
+            res[f"gemm_m{M}"] = smoke.gemm_timings(M, smoke.GEMM_KN if M < 64
+                                                   else smoke.GEMM_KN[:-1])
+        res["gemm_m4032"] = smoke.gemm_timings(smoke.LONG_PROMPT, smoke.GEMM_KN[:4])
+        for M in (16, 64):
+            res[f"packed_tc_m{M}"] = smoke.packed_timings(M, smoke.GEMM_KN[:4])
+            res[f"p16_m{M}"] = smoke.p16_timings(M)
+        torch.cuda.empty_cache()
+        res["profile_paged16"] = paged16()
+        torch.cuda.empty_cache()
+        res["prefill64"] = prefill_ms()
+        torch.cuda.empty_cache()
+        report, launches = smoke.run_main_path()
+        res["main_path"] = {k: report[k] for k in ("p50_ttft_ms", "p50_token_ms",
+                                                   "decode_tok_per_s", "makespan_s")}
+        res["main_path"]["launches"] = launches
+        print(json.dumps({"timings": res}))
+        return 0
     if "--prefill" in sys.argv:
         res = {"src": str(src), "nvidia_smi": smi,
-               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *large,
+               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *gemm_libs,
                                                    "posit_attention")),
                "gemm_large": smoke.large_gemm_timings()}
         keys = ("p50_ttft_ms", "p95_ttft_ms", "ttft_ms", "decode_tok_per_s", "makespan_s",
@@ -112,24 +206,28 @@ def main() -> int:
         return 0
     if "--train" in sys.argv:
         res = {"src": str(src), "nvidia_smi": smi,
-               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *large)),
+               "build_seconds": smoke.build.build(("posit_codec", "posit_gemm", *gemm_libs)),
                "train": smoke.train_timings()}
         for policy, steps in (("p16-train", 6), ("none", 3)):
             res[f"train_path_{policy}"] = smoke.run_train_path(policy, steps, checks=False)
             torch.cuda.empty_cache()
         print(json.dumps({"timings": res}))
         return 0
-    seconds = smoke.build.build(("posit_codec", "posit_gemm", *large, "posit_attention",
+    seconds = smoke.build.build(("posit_codec", "posit_gemm", *gemm_libs, "posit_attention",
                                  "posit_quire_gemm", "posit_softmax"))
     res = {"src": str(src), "build_seconds": seconds,
            "gemm_decode": smoke.gemm_timings(4, smoke.GEMM_KN),
+           "gemm_m16": smoke.gemm_timings(16, smoke.GEMM_KN),
+           "gemm_m32": smoke.gemm_timings(32, smoke.GEMM_KN),
            "gemm_prefill": smoke.gemm_timings(64, smoke.GEMM_KN[:-1]),
            "gemm_p16_decode": smoke.p16_timings(),
+           "gemm_p16_m16": smoke.p16_timings(16),
            "gemm_p16_prefill": smoke.p16_timings(64)}
     if (src / "repro_torch" / "core" / "pack.py").exists():   # packages with packed lanes
         for cd, name in ((torch.bfloat16, "packed_tc"), (torch.float32, "packed_fma")):
             res[f"{name}_decode"] = smoke.packed_timings(4, smoke.GEMM_KN, cd)
             res[f"{name}_prefill"] = smoke.packed_timings(64, smoke.GEMM_KN[:-1], cd)
+        res["packed_tc_m16"] = smoke.packed_timings(16, smoke.GEMM_KN)
     res.update(
         quire_decode=smoke.quire_timings(4, smoke.PHI3_KN + (smoke.PHI3_LM_HEAD,)),
         quire_prefill=smoke.quire_timings(32, smoke.PHI3_KN),
@@ -142,9 +240,6 @@ def main() -> int:
     if "--profiles" in sys.argv:
         from repro_torch.core.policy import get_precision_policy
 
-        keep = ("step_ms", "decode_tok_per_s", "device_busy_us_per_step",
-                "device_idle_share", "launches_per_step", "launches_all_kernels_per_step",
-                "top", "captured", "graph_vs_eager")
         for name, args in (("p8_serve", (smoke.QWEN, smoke.P8_SERVE)),
                            ("mixed", (smoke.QWEN, get_precision_policy(
                                smoke.MIXED, base=smoke.P8_SERVE))),
@@ -153,6 +248,8 @@ def main() -> int:
             res[f"profile_{name}"] = {k: v for k, v in prof.items() if k in keep}
             res[f"profile_{name}"]["eager"] = {k: v for k, v in prof["eager"].items()
                                                if k in keep}
+        if paged:
+            res["profile_paged16"] = paged16()
     print(json.dumps({"timings": res}))
     return 0
 

@@ -54,8 +54,10 @@
 //     adds about a third to that.
 //   - M <= 8 pads to the MMA's 8 rows and every weight element is decoded
 //     once for all rows; M > 8 uses 64-row tiles of A (8 MMAs per decoded
-//     fragment). Eight warps: two column halves x four 16-row k slices of a
-//     stage; the slices' sums meet in shared memory in slice order.
+//     fragment), which from 9 to 64 rows take only the shapes
+//     posit_gemm_mid.cu refuses (kernels/posit_gemm/ops.py `gemm_route`).
+//     Eight warps: two column halves x four 16-row k slices of a stage; the
+//     slices' sums meet in shared memory in slice order.
 //   - Stream-K: a persistent grid of `grid` blocks (one wave of resident
 //     blocks, sized by kernels/posit_gemm/ops.py `split_plan`) walks the
 //     (tile, k step) space in equal contiguous shares, so the load is even

@@ -20,6 +20,7 @@ LAUNCHES: dict[str, int] = {
     "posit_gemm_p16": 0,
     "posit_gemm_large_tc": 0,
     "posit_gemm_large_fma": 0,
+    "posit_gemm_mid_tc": 0,
     "posit_attention": 0,
     "posit_attention_paged": 0,
     "posit_quire_gemm": 0,

@@ -17,7 +17,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("posit_codec", "posit_gemm", "posit_gemm_large", "posit_attention",
+SOURCES = ("posit_codec", "posit_gemm", "posit_gemm_large", "posit_gemm_mid", "posit_attention",
            "posit_quire_gemm", "posit_softmax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")

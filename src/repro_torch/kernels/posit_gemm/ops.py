@@ -14,7 +14,11 @@ large-M kernels take (``large_shape_ok``) goes to csrc/posit_gemm_large.cu
 instead: the ``wgmma`` kernel for the tensor-core pairs
 (``posit_gemm_large_tc``; a posit B is decoded to bf16 once for the call)
 and the 128 x 128 f32-FMA tile for the rest (``posit_gemm_large_fma``),
-whatever the B kind. ``gemm_route`` is the choice.
+whatever the B kind. From 9 to ``MID_M`` rows the tensor-core pairs take
+csrc/posit_gemm_mid.cu (``posit_gemm_mid_tc``, every B kind: ``wgmma`` with
+the weights decoded into register fragments) where its copies take the shape
+(``mid_shape_ok``); the 64-row tile of csrc/posit_gemm.cu keeps the rest.
+``gemm_route`` is the choice.
 
 ``float_linear`` is the float-weight linear as autograd sees it: the kernel
 in the forward, plain products in the backward."""
@@ -41,6 +45,9 @@ _SIGNATURES = {
 _LARGE_SIGNATURES = {
     "posit_gemm_large_launch": (_P,) * 8 + (_I,) * 13 + (_P,),
 }
+_MID_SIGNATURES = {
+    "posit_gemm_mid_launch": (_P,) * 8 + (_I,) * 11 + (_P,),
+}
 # Tile of the tensor-core kernel (csrc/posit_gemm.cu kTcBN, kTcBK): 128
 # output columns, 64 k rows a pipeline stage; 8 rows for M <= 8, else 64.
 TC_COLS, TC_STEP = 128, 64
@@ -54,6 +61,11 @@ LARGE_M = 64
 # rows x 256 columns, 64-row k blocks of B; f32 FMA 128 x 128, 8-row stages.
 LARGE_TC_ROWS, LARGE_TC_COLS, LARGE_TC_STEP = 128, 256, 64
 LARGE_FMA_TILE, LARGE_FMA_STEP = 128, 8
+# The mid-M kernel (csrc/posit_gemm_mid.cu): 9..MID_M rows, 128-column
+# tiles, 64 rows of B (packed rows for a packed B) a k step, 256 consumer
+# threads a block.
+MID_M = 64
+MID_COLS, MID_STEP, MID_THREADS = 128, 64, 256
 
 
 def _lib():
@@ -62,6 +74,10 @@ def _lib():
 
 def _large_lib():
     return build.load("posit_gemm_large", _LARGE_SIGNATURES)
+
+
+def _mid_lib():
+    return build.load("posit_gemm_mid", _MID_SIGNATURES)
 
 
 # Storage kind of a packed p8 B operand, two codes a uint16 (csrc/posit_gemm.cu kP8x2)
@@ -100,19 +116,34 @@ def large_shape_ok(N: int, K: int) -> bool:
     return K > 0 and N % 16 == 0 and K % 8 == 0
 
 
+def mid_shape_ok(N: int, K: int) -> bool:
+    """The shapes the mid-M kernel takes, whatever the B kind: its TMA copies
+    of B need a row stride that is a multiple of 16 bytes (N a multiple of
+    16 for p8 codes); rows past K and columns past N come in as zeros, so K
+    is free. ``posit_gemm_mid_launch`` refuses anything else."""
+    return K > 0 and N % 16 == 0
+
+
 def gemm_route(M: int, N: int, K: int, a_kind: int, b_kind: int, bf16_compute: bool,
                aligned: bool = True) -> str:
     """The kernel a GEMM launches: "large_tc" or "large_fma" above ``LARGE_M``
     rows for a shape the large-M kernels take, with A and B 16-byte aligned
-    (``aligned``); else "tc" or "fma", the kernels of csrc/posit_gemm.cu."""
+    (``aligned``); "mid_tc" for a tensor-core pair at 9 to ``MID_M`` rows
+    (and at most ``LARGE_M``) on a shape the mid-M kernel takes, aligned;
+    else "tc" or "fma", the kernels of csrc/posit_gemm.cu."""
     tc = uses_tensor_cores(a_kind, b_kind, bf16_compute)
     if M > LARGE_M and aligned and large_shape_ok(N, K):
         return "large_tc" if tc else "large_fma"
+    if tc and 8 < M <= min(MID_M, LARGE_M) and aligned and mid_shape_ok(N, K):
+        return "mid_tc"
     return "tc" if tc else "fma"
 
 
-def launch_counter(b_kind: int, tensor_cores: bool, large: bool = False) -> str:
+def launch_counter(b_kind: int, tensor_cores: bool, large: bool = False,
+                   mid: bool = False) -> str:
     """The ``kernels.LAUNCHES`` key a launch of this B kind and datapath adds to."""
+    if mid:
+        return "posit_gemm_mid_tc"
     if large:
         return "posit_gemm_large_tc" if tensor_cores else "posit_gemm_large_fma"
     if b_kind == PACKED_KIND:
@@ -215,6 +246,36 @@ def large_plan(M: int, N: int, K: int, b_kind: int, sms: int, tensor_cores: bool
     return large_split_plan(M, N, kb, sms, tensor_cores)
 
 
+@dataclasses.dataclass(frozen=True)
+class MidPlan:
+    """The mid-M kernel's stream-K grid: ``grid`` persistent blocks (one an
+    SM) walk the ``tiles * steps`` (128-column tile, 64-row k step) items
+    in equal contiguous shares, as ``StreamPlan``'s blocks do. For a packed
+    B a step is 64 packed rows, so ``steps`` walks ceil(K/2)."""
+    tiles: int   # output tiles, all M rows x 128 columns
+    steps: int   # k steps of a tile
+    grid: int    # persistent blocks
+
+
+def mid_rows(M: int) -> int:
+    """The width of the mid-M kernel's ``wgmma`` (A's rows padded to it), which
+    also sizes its partials: (grid, 2, 256, ``mid_rows(M) // 2``) f32."""
+    return 16 if M <= 16 else 32 if M <= 32 else 64
+
+
+def mid_plan(N: int, K: int, sms: int, b_kind: int = 2) -> MidPlan:
+    """The mid-M kernel's grid: one block an SM, fewer when the work would
+    give a block under 8 k steps, since every extra block splits a tile
+    once more and its part (128 x ``mid_rows(M)`` f32) must be read back by
+    the tile's last block. Every block's share is within one k step of every
+    other's. The plan takes no M: a row's sum order is the same for every M
+    in 9..64 (the instruction's width follows M, the sums do not)."""
+    kb = -(-K // 2) if b_kind == PACKED_KIND else K
+    tiles = -(-N // MID_COLS)
+    steps = max(1, -(-kb // MID_STEP))
+    return MidPlan(tiles, steps, max(1, min(sms, tiles * steps // 8)))
+
+
 def posit_gemm(
     a: torch.Tensor, b: torch.Tensor, es, *, a_fmt: Fmt, b_fmt: Fmt, out_fmt: Fmt,
     bias: Optional[torch.Tensor] = None,
@@ -277,7 +338,30 @@ def posit_gemm(
     bf16 = compute_dtype == torch.bfloat16
     tensor_cores = uses_tensor_cores(a_kind, b_kind, bf16)
     aligned = a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
-    if gemm_route(M, N, K, a_kind, b_kind, bf16, aligned).startswith("large"):
+    route = gemm_route(M, N, K, a_kind, b_kind, bf16, aligned)
+    if route == "mid_tc":
+        plan = mid_plan(N, K, sms, b_kind)
+        partial = (torch.empty((plan.grid, 2, MID_THREADS, mid_rows(M) // 2),
+                               dtype=torch.float32, device=a.device)
+                   if plan.grid > 1 else None)
+        counters = (kernels.zeroed_counters(a.device, stream, plan.tiles) if plan.grid > 1
+                    else None)
+        # A rounded or decoded to bf16 once a call, zero past K (a packed B's
+        # two slices each padded to whole 64-wide steps), inside the launch
+        width = plan.steps * MID_STEP * (2 if b_kind == PACKED_KIND else 1)
+        a16 = torch.empty((M, width), dtype=torch.bfloat16, device=a.device)
+        rc = _mid_lib().posit_gemm_mid_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            None if counters is None else counters.data_ptr(), a16.data_ptr(),
+            M, N, K, a_kind, b_kind, out_kind, es[0], es[1], es[2], _ACT[activation],
+            plan.grid, stream)
+        check_rc(rc, "posit_gemm_mid")
+        kernels.LAUNCHES[launch_counter(b_kind, True, mid=True)] += 1
+        return out
+    if route.startswith("large"):
         plan = large_plan(M, N, K, b_kind, sms, tensor_cores)
         partial = (torch.empty((plan.splits, M, N), dtype=torch.float32, device=a.device)
                    if plan.splits > 1 else None)

@@ -133,8 +133,9 @@ def test_gemm_decode_rows_batch_invariant(dev, K, N):
 @pytest.mark.parametrize("a_fmt", [F32, BF16, P8_0], ids=["f32", "bf16", "p8"])
 def test_gemm_p16_tensor_cores_match_plain(dev, M, K, N, a_fmt):
     """p16 weights under bf16 compute run on the tensor cores (their own
-    launch count) and agree with the plain version within the GEMM bound on
-    the bf16-rounded operands, at ragged K and N, decode and prefill rows."""
+    launch count; past 8 rows on an N the mid-M kernel takes, its key) and
+    agree with the plain version within the GEMM bound on the bf16-rounded
+    operands, at ragged K and N, decode and prefill rows."""
     a, b, bias, res = _gemm_operands(dev, M, K, N, P16_1, M + K + 2)
     if a_fmt == BF16:
         a = a.to(torch.bfloat16)
@@ -144,7 +145,9 @@ def test_gemm_p16_tensor_cores_match_plain(dev, M, K, N, a_fmt):
               activation="silu", compute_dtype=torch.bfloat16)
     before = dict(kernels.LAUNCHES)
     got = posit_gemm(a, b, (0, 1, 0), **kw)
-    assert kernels.LAUNCHES["posit_gemm_p16"] == before["posit_gemm_p16"] + 1
+    # 9-64 rows on a shape the mid-M kernel takes run there, under its key
+    key = "posit_gemm_mid_tc" if M > 8 and N % 16 == 0 else "posit_gemm_p16"
+    assert kernels.LAUNCHES[key] == before[key] + 1
     assert kernels.LAUNCHES["posit_gemm"] == before["posit_gemm"]
     want = posit_gemm_ref(a, b, (0, 1, 0), **kw)
     avals = codec_ref.decode_ref(a, 0, nbits=8) if a_fmt == P8_0 else a.float()
@@ -155,21 +158,23 @@ def test_gemm_p16_tensor_cores_match_plain(dev, M, K, N, a_fmt):
 
 
 @pytest.mark.parametrize("es", [0, 1, 2, 3])
-@pytest.mark.parametrize("M", [8, 64])
+@pytest.mark.parametrize("M", [8, 16, 64])
 def test_gemm_p16_tensor_cores_decode_every_code(dev, es, M):
     """Every p16 code through one-hot activation rows (one k step): the
     tensor-core route's result is the bf16 rounding of each decoded code,
-    bit for bit the plain version's; NaR's column reads NaN."""
+    bit for bit the plain version's; NaR's column reads NaN. M = 16 pads
+    to a column count the mid-M kernel takes (16 extra, not 8)."""
     codes = torch.arange(1 << 16, device=dev, dtype=torch.int32)
     codes = torch.cat([codes[codes != 0x8000], codes.new_zeros(1)])
-    b = torch.cat([codes.reshape(M, -1), codes.new_zeros((M, 8))], dim=1)
-    b[0, -8] = 0x8000
+    pad = 16 if M == 16 else 8
+    b = torch.cat([codes.reshape(M, -1), codes.new_zeros((M, pad))], dim=1)
+    b[0, -pad] = 0x8000
     b = b.to(torch.uint16).contiguous()
     a = torch.eye(M, device=dev)
     kw = dict(a_fmt=F32, b_fmt=P16_1, out_fmt=F32, compute_dtype=torch.bfloat16)
     got = posit_gemm(a, b, (0, es, 0), **kw)
     want = posit_gemm_ref(a, b, (0, es, 0), **kw)
-    assert torch.equal(got.isnan(), want.isnan()) and bool(got[:, -8].isnan().all())
+    assert torch.equal(got.isnan(), want.isnan()) and bool(got[:, -pad].isnan().all())
     live = ~want.isnan()
     assert torch.equal(got[live].view(torch.int32), want[live].view(torch.int32))
 
@@ -195,12 +200,15 @@ def test_packed_gemm_kernel_matches_plain(dev, M, K, N, cd):
     """The packed variants (tensor cores under bf16 compute, f32 FMA under
     f32) against the packed plain version and against the unpacked kernel on
     ``unpack_p8`` of the same codes, at odd and even K, ragged N, decode and
-    prefill rows; each launch counts under its own variant."""
+    prefill rows; each launch counts under its own variant (the mid-M
+    kernel's key at 9-64 rows on an N it takes)."""
     a, b, bias, res = _gemm_operands(dev, M, K, N, P8_2, M + K + 1)
     bp = pack_p8(b)
     kw = dict(a_fmt=F32, b_fmt=P8_2, out_fmt=F32, bias=bias, residual=res,
               activation="silu", compute_dtype=cd)
     name = "posit_gemm_packed" if cd == torch.bfloat16 else "posit_gemm_packed_fma"
+    if cd == torch.bfloat16 and M > 8 and N % 16 == 0:
+        name = "posit_gemm_mid_tc"   # 9-64 rows on a shape the mid-M kernel takes
     before = dict(kernels.LAUNCHES)
     got = posit_gemm(a, bp, (0, 2, 0), b_packed=True, **kw)
     assert kernels.LAUNCHES[name] == before[name] + 1
@@ -868,3 +876,92 @@ def test_large_m_refused_shapes_take_the_64_row_tiles(dev, M, K, N, packed):
     tol = 2 * K * U * (a.to(torch.bfloat16).float().abs() @ bvals.abs() + bias.abs()) \
         + 8 * U * (want.abs() + res.abs())
     assert ((got - want).abs() <= tol).all()
+
+
+# the mid-M kernel's B kinds: (weight format, packed lanes)
+MID_KINDS = [(P8_0, False), (P8_2, True), (P16_1, False), (BF16, False)]
+MID_IDS = ["p8", "packed", "p16", "bf16"]
+
+
+def _mid_operands(dev, M, K, N, b_fmt, packed, a_fmt, seed):
+    """Operands as the layers pass them, B packed if asked, and the values
+    the products see (A and B rounded to bf16)."""
+    a, b, bias, res = _gemm_operands(dev, M, K, N, b_fmt, seed)
+    bvals = b.float() if b_fmt == BF16 else codec_ref.decode_ref(b, b_fmt.es, nbits=b_fmt.nbits)
+    if a_fmt == BF16:
+        a = a.to(torch.bfloat16)
+    elif a_fmt == P8_0:
+        a = codec_ops.encode(a, 0, nbits=8)
+    avals = codec_ref.decode_ref(a, 0, nbits=8) if a_fmt == P8_0 else a.float()
+    return (a, pack_p8(b) if packed else b, bias, res, avals.to(torch.bfloat16).float(),
+            bvals.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("M", [9, 16, 33, 64])
+@pytest.mark.parametrize("a_fmt", [F32, BF16, P8_0], ids=["f32", "bf16", "p8"])
+@pytest.mark.parametrize("b_fmt,packed", MID_KINDS, ids=MID_IDS)
+def test_mid_m_gemm_matches_plain(dev, b_fmt, packed, a_fmt, M):
+    """9-64 rows under bf16 compute, every B kind and A kind, run on the mid-M
+    kernel (csrc/posit_gemm_mid.cu, its own launch key) within the GEMM
+    bound 2*K*u*(|A|@|B| + |bias|) + 8*u*(|y| + |res|) of the plain version
+    on the values the products see, at a K off the 64-row step; two calls
+    give the same bits."""
+    K, N = 1000, 528
+    a, b, bias, res, avals, bvals = _mid_operands(dev, M, K, N, b_fmt, packed, a_fmt, M + 7)
+    es = (0, getattr(b_fmt, "es", 0), 0)
+    kw = dict(a_fmt=a_fmt, b_fmt=b_fmt, out_fmt=F32, bias=bias, residual=res,
+              activation="silu", compute_dtype=torch.bfloat16, b_packed=packed)
+    before = dict(kernels.LAUNCHES)
+    got = posit_gemm(a, b, es, **kw)
+    assert kernels.LAUNCHES["posit_gemm_mid_tc"] == before["posit_gemm_mid_tc"] + 1
+    assert all(kernels.LAUNCHES[k] == before[k] for k in before if k != "posit_gemm_mid_tc")
+    want = posit_gemm_ref(a, b, es, **kw)
+    tol = 2 * K * U * (avals.abs() @ bvals.abs() + bias.abs()) + 8 * U * (want.abs() + res.abs())
+    assert ((got - want).abs() <= tol).all()
+    again = posit_gemm(a, b, es, **kw)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("K,N", [(5120, 5120), (1000, 528)])
+@pytest.mark.parametrize("b_fmt,packed", MID_KINDS, ids=MID_IDS)
+def test_mid_m_rows_do_not_depend_on_the_batch(dev, b_fmt, packed, K, N):
+    """The mid-M plan depends on N, K and the B kind only, and each output
+    sums the same k16 products in the same order whatever the wgmma's width
+    (16, 32 or 64 rows): rows 0-8 of an M = 16 call are those of M = 9 and M
+    = 64 calls bit for bit, epilogue included."""
+    a, b, bias, res, _, _ = _mid_operands(dev, 64, K, N, b_fmt, packed, F32, 11)
+    es = (0, getattr(b_fmt, "es", 0), 0)
+    kw = dict(a_fmt=F32, b_fmt=b_fmt, out_fmt=F32, bias=bias, activation="gelu",
+              compute_dtype=torch.bfloat16, b_packed=packed)
+    rows = {m: posit_gemm(a[:m].contiguous(), b, es, residual=res[:m].contiguous(),
+                          **kw).view(torch.int32) for m in (9, 16, 64)}
+    assert torch.equal(rows[16][:9], rows[9]) and torch.equal(rows[16][:9], rows[64][:9])
+    assert torch.equal(rows[16], rows[64][:16])
+
+
+def test_mid_m_gemm_captured_in_a_cuda_graph(dev):
+    """One mid-M GEMM captured in a CUDA graph (as the decode step is) gives
+    its eager launch's bits, on the captured inputs and again after new
+    activations are written into the captured buffer."""
+    M, K, N = 16, 5120, 5120
+    a, b, bias, res, _, _ = _mid_operands(dev, M, K, N, P8_0, False, F32, 12)
+    kw = dict(a_fmt=F32, b_fmt=P8_0, out_fmt=F32, bias=bias, residual=res,
+              activation="silu", compute_dtype=torch.bfloat16)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):   # warm up on the capturing stream (its counters)
+        eager = posit_gemm(a, b, (0, 0, 0), **kw)
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        out = posit_gemm(a, b, (0, 0, 0), **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), eager.view(torch.int32))
+    a.copy_(torch.randn((M, K), generator=torch.Generator(device=dev).manual_seed(13),
+                        device=dev))
+    want = posit_gemm(a, b, (0, 0, 0), **kw)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))

@@ -211,10 +211,18 @@ def test_split_plan_covers_k_and_fills_whole_waves(M, K, N):
     steps cover K, the kernel's owner formula finds each item's block, and
     the blocks' shares differ by at most one step: no block runs a second
     wave. The grid is the resident count (2 blocks an SM for 8-row tiles, 1
-    for 64-row tiles) unless that would leave a block under its least share."""
+    for 64-row tiles) unless that would leave a block under its least share.
+    Past 8 rows the 64-row tile now takes only the shapes the mid-M kernel
+    refuses (N not a multiple of 16, as 999 x 1001 and 70 x 45 here, or
+    unaligned operands): the qwen shapes go to the mid-M kernel, whose plan
+    tests/test_torch_gemm_mid.py holds."""
+    from repro_torch.kernels.posit_gemm.ops import gemm_route
+
     plan = split_plan(M, N, K, SMS)
     rows = 8 if M <= 8 else 64
     assert plan.rows == rows
+    if 8 < M <= 64:
+        assert gemm_route(M, N, K, 0, 2, True) == ("tc" if N % 16 else "mid_tc")
     assert plan.tiles == -(-N // TC_COLS) * -(-M // rows)
     assert plan.steps * TC_STEP >= K > (plan.steps - 1) * TC_STEP
     total = plan.tiles * plan.steps

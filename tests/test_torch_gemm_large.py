@@ -97,15 +97,21 @@ def test_large_m_matches_pallas(row, M, K, N, act):
     (3, 3, False)])
 @pytest.mark.parametrize("M", [1, 4, 8, 9, 16, 64, 65, 128, 4032, 4096])
 def test_route_and_counter_by_rows(a_kind, b_kind, bf16, M):
-    """Up to ``LARGE_M`` rows a GEMM takes the parent's kernels (decode tiles,
-    the 64-row tensor-core tile, the 64 x 64 FMA tile), with their plans and
-    launch keys; past it, the wgmma kernel for the pairs the tensor cores
-    take and the 128 x 128 FMA tile for the rest, each with a key of its
-    own, whatever the B kind."""
+    """Up to ``LARGE_M`` rows a GEMM takes the kernels below it: for the
+    pairs the tensor cores take, the decode tile at M <= 8 and the mid-M
+    kernel (csrc/posit_gemm_mid.cu, one launch key whatever the B kind)
+    from 9 rows on; the FMA kernels (decode tile, 64 x 64 tile) for the
+    rest, with their plans and launch keys; past it, the wgmma kernel for
+    the tensor-core pairs and the 128 x 128 FMA tile for the rest, each
+    with a key of its own, whatever the B kind."""
     N, K = 5120, 13824
     tc = uses_tensor_cores(a_kind, b_kind, bf16)
     route = gemm_route(M, N, K, a_kind, b_kind, bf16)
-    if M <= LARGE_M:
+    if tc and 8 < M <= LARGE_M:
+        assert route == "mid_tc"
+        key = launch_counter(b_kind, tc, mid=True)
+        assert key == "posit_gemm_mid_tc"
+    elif M <= LARGE_M:
         assert route == ("tc" if tc else "fma")
         key = launch_counter(b_kind, tc)
         assert key in ("posit_gemm", "posit_gemm_p16", "posit_gemm_packed",

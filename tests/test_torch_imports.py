@@ -109,9 +109,11 @@ def test_cpu_tensors_take_the_plain_version():
     for cd in (torch.bfloat16, torch.float32):   # both packed variants' routes
         posit_gemm(w.float(), pack_p8(w), (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
                    compute_dtype=cd, b_packed=True)
-        # past LARGE_M rows, where a CUDA tensor takes the large-M kernels
-        posit_gemm(torch.randn(130, 8), w, (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
-                   compute_dtype=cd)
+        # past LARGE_M rows, where a CUDA tensor takes the large-M kernels,
+        # and at 9-64 rows, where it takes the mid-M kernel
+        for m in (130, 16):
+            posit_gemm(torch.randn(m, 8), w, (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
+                       compute_dtype=cd)
     pool = codes.reshape(4, 1, 1, 16).contiguous()            # (N, Hkv, bt, d)
     table = torch.tensor([[0, 2], [4, 1]], dtype=torch.int32)
     q, lens = torch.randn(2, 2, 16), torch.tensor([1, 2], dtype=torch.int32)
@@ -123,7 +125,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert set(kernels.LAUNCHES) == {"posit_decode", "posit_encode", "posit_gemm",
                                      "posit_gemm_packed", "posit_gemm_packed_fma",
                                      "posit_gemm_p16", "posit_gemm_large_tc",
-                                     "posit_gemm_large_fma", "posit_attention",
+                                     "posit_gemm_large_fma", "posit_gemm_mid_tc",
+                                     "posit_attention",
                                      "posit_attention_paged", "posit_quire_gemm",
                                      "posit_softmax"}
 
