@@ -60,11 +60,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      paged row write (``check_paged_attention``); the
      softmax kernel against its plain version (within 1 posit ulp), up to
      qwen's vocabulary, with a NaR row;
+     the paper's ISA entry points on the card against the CPU: the
+     true-posit ALU (``core/alu.py``) on every p8 pair and 2^18 p16 pairs
+     at es 0-3, a chain of quire ops, and the eight fcvt ops
+     (``core/convert.py``, the codec kernels) on every p8 and p16 code and
+     a float sweep, bit for bit (``check_alu_fcvt``); ``posit_dot``'s fused
+     and unfused dataflows at Table IV's sizes (F32, P16_1, P8_0, n = 4 to
+     1,024) and ``posit_gemv`` (n = 4 to 4,096) within the GEMM bound, the
+     unfused form's two decode launches counted (``check_dataflows``);
   5. the reduced qwen2.5-14b (P8_SERVE, and the per-layer presets
      p8-packed and attn-p16-mlp-p8) and the reduced phi3-mini-3.8b (p16
      under the quire) on the card against the same models on the CPU (plain
-     versions), and the reduced qwen2.5-14b on a 2 x 300-token prompt, whose
-     prefill linears run on the wgmma kernel. Then five paths, each with
+     versions), the reduced qwen2.5-14b on a 2 x 300-token prompt, whose
+     prefill linears run on the wgmma kernel, and the reduced olmoe-1b-7b
+     (P8_SERVE and attn-p16-mlp-p8) and granite-moe-3b-a800m. Then the
+     paths, each with
      every kernel's launch count set to 0 just before it and read just after:
      - qwen2.5-14b at full width and depth, random weights from a seed,
        P8_SERVE, 8 requests (prompt 64, gen 16, 4 slots, greedy) through the
@@ -96,6 +106,13 @@ Phases, in order; any failure raises and the script exits non-zero:
        through copy-on-write, no dense attention launch, the prefills on
        the wgmma kernel (``run_paged_path``);
        then ``serve(paged=True, page_bytes=32768)`` through the entry point;
+     - the moe path: olmoe-1b-7b at full width and depth (16 layers, 64
+       experts top-8), P8_SERVE, 8 requests (prompt 64, gen 16, 4 slots,
+       greedy) through ``serve``, every expert product a GEMM-kernel launch
+       (3,153 decode-tile launches a decode step, 3,152 mid-M launches a
+       prefill, counted exactly: ``run_moe_path``); then the slot grid and
+       the paged engine on the same requests, bit for bit
+       (``run_moe_paged``);
      and a profiled decode step of each served model, of the long context
      and of the paged engine (48 paged attention launches a step), each
      from two engines on the same params and requests: the
@@ -105,7 +122,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      a mid-flight ``apply_policy`` to f32 compute), launch counts and
      profiled kernels must agree,
      with the step's wall time, device time, idle share and decode
-     tokens/s of both on a ``graph_vs_eager`` line a path (every step one
+     tokens/s of both on a ``graph_vs_eager`` line a path (olmoe's too;
+     every step one
      attention launch a layer, no encode launch
      but the quire linears' own, one a call, and no index kernel but the
      embedding's: the KV rows are written inside the attention kernel; the
@@ -156,7 +174,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      weights at qwen2.5-14b's prefill shapes at M = 4,032 and 1,024 and the
      crossover sweep at M = 64 to 512 (bf16 on p8 weights, f32 on f32 ones),
      each on the large-M kernels and on the 64-row tiles, beside
-     torch.matmul (``large_gemm_timings``).
+     torch.matmul (``large_gemm_timings``); fused against unfused
+     ``posit_dot`` at Table IV's sizes and ``posit_gemv`` at the paper's
+     GEMV sizes, device time and CUDA-event time of a call
+     (``dataflow_timings``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
@@ -229,10 +250,12 @@ PHI3_LM_HEAD = (3072, 32064)
 SOFTMAX_SHAPES = ((1024, 8), (1024, 32), (1024, 128), (4, 32064))
 QWEN_LOGITS = (4, 152064)
 DETAILS: dict = {}
+T_START = time.perf_counter()
 
 
 def log(kind: str, **kw) -> None:
-    print(json.dumps({"phase": kind, **kw}), flush=True)
+    """A phase's line, with ``t``: the seconds since the script started."""
+    print(json.dumps({"phase": kind, "t": time.perf_counter() - T_START, **kw}), flush=True)
 
 
 def bound_ms(nbytes: float, flops: float = 0.0, kind: str = "bf16") -> tuple[float, str]:
@@ -325,15 +348,29 @@ def whole_window(body, *activities):
                        f"{DETAILS['profiler']['lost'][-PROFILE_TRIES:]}")
 
 
-def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
+def kernel_name(name: str) -> str:
+    """A device record's kernel name with its template arguments, without
+    its parameter list and anonymous namespaces, at most 80 characters."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0 and i > 0:
+            return name[:i].rstrip()[:80]
+    return name[:80]
+
+
+def time_ms(fn, *, windows: int = 5, calls: int = 10, kernels_out: dict | None = None) -> float:
     """Device time of one call of ``fn``: every kernel it launches, summed by
     torch.profiler over ``calls`` back-to-back calls, median over
     ``windows``, after a warm-up call. The windows run in one ``profiled``
     window, a marker after each; it is taken again (``whole_window``) if the
     profiler lost its start or any of them recorded no device time (counted
-    in DETAILS["profiler_empty_windows"]). CUDA events around the calls
-    would time this host's dispatch instead: it is slower than most of these
-    kernels, so the card idles between them."""
+    in DETAILS["profiler_empty_windows"]). With ``kernels_out``, fills it
+    with each kernel a call launches (``kernel_name``): [launches, device
+    us] a call, over every window. CUDA events around the calls would time
+    this host's dispatch instead: it is slower than most of these kernels,
+    so the card idles between them."""
     from torch.profiler import ProfilerActivity
 
     fn()
@@ -351,6 +388,11 @@ def time_ms(fn, *, windows: int = 5, calls: int = 10) -> float:
         for e in events:
             us[sum(t < e.time_range.start for t in marks)] += e.device_time_total
         if min(us) > 0:
+            if kernels_out is not None:
+                for e in events:
+                    row = kernels_out.setdefault(kernel_name(e.name), [0.0, 0.0])
+                    row[0] += 1 / (windows * calls)
+                    row[1] += e.device_time_total / (windows * calls)
             return statistics.median(us) / calls / 1e3
         DETAILS["profiler_empty_windows"] = DETAILS.get("profiler_empty_windows", 0) + 1
     raise RuntimeError(f"torch.profiler recorded no device time in a window, {PROFILE_TRIES} "
@@ -463,6 +505,23 @@ def gemm_cases():
                   True, "silu", True))
     cases.append(("p8 x p8 out M64 5120x1024", 64, 5120, 1024, P8_0, P8_0, P8_0,
                   True, "none", False))
+    # olmoe-1b-7b's products as its moe layers call them: the experts at C =
+    # 8 rows (a 4-slot decode step: the decode tile) and C = 16 (a 64-token
+    # prefill: the mid-M kernel), the router's 64 columns (at 64 rows below
+    # the mid-M kernel's 128-column stream-K tile), attention, lm_head's
+    # 50,304 columns at a prefill's one row and a decode step's four
+    for M in (8, 16):
+        for K, N, act in ((2048, 1024, "silu"), (2048, 1024, "none"), (1024, 2048, "none")):
+            cases.append((f"olmoe expert M{M} {K}x{N} {act}", M, K, N, P8_0, torch.float32,
+                          F32, False, act, False))
+    for M in (4, 64):
+        cases.append((f"olmoe router M{M} 2048x64", M, 2048, 64, P8_0, torch.float32, F32,
+                      False, "none", False))
+        cases.append((f"olmoe attn M{M} 2048x2048", M, 2048, 2048, P8_0, torch.float32, F32,
+                      False, "none", True))
+    for M in (1, 4):
+        cases.append((f"olmoe lm_head M{M} 2048x50304", M, 2048, 50304, P8_0, torch.float32,
+                      F32, False, "none", False))
     # past LARGE_M rows, the large-M kernels: every prefill shape of the long
     # context's and the paged path's prompts as the model calls it (wgmma, a
     # posit B decoded to bf16 once for the call; k/v at M = 1,024 splits K),
@@ -1806,7 +1865,8 @@ PROFILE_GEN = 32
 
 def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 4,
                    share: bool = False, swap=None, engine=ContinuousBatchingEngine,
-                   engine_kw=None, slots: int = 4) -> dict:
+                   engine_kw=None, slots: int = 4, model=None, params=None,
+                   keep_recorded: bool = False) -> dict:
     """Where a decode step's time goes, with the step captured in a CUDA
     graph and run eagerly (``EagerTwin``): the full model at 4 busy slots,
     the same params, requests and seeds for both. Each engine first serves
@@ -1822,16 +1882,20 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     graph's numbers, the twin's under "eager" and the comparison under
     "graph_vs_eager". ``engine`` is the engine class (its eager twin from
     ``eager_twin``), built with ``engine_kw`` too, at ``slots`` slots and
-    as many requests."""
-    model = build_model(arch)
-    params = model.init(0, policy)
+    as many requests (``profile_requests``). ``model`` and ``params`` are
+    the caller's if given (else built from ``arch``, seed 0); with
+    ``keep_recorded`` the graph run's recorded streams and logits are under
+    "recorded"."""
+    own = model is None
+    if own:
+        model = build_model(arch)
+        params = model.init(0, policy)
     runs = {}
     for name, cls in (("graph", engine), ("eager", eager_twin(engine))):
         kernels.reset_launches()
         eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + PROFILE_GEN,
                   **(engine_kw or {}))
-        reqs = poisson_requests(slots, arrival_rate=0.0, prompt_lens=(prompt_len,),
-                                max_new_tokens=PROFILE_GEN, vocab=arch.vocab, seed=1)
+        reqs = profile_requests(arch, slots, prompt_len)
         recorded = served_recorded(eng, reqs, swap)
         if swap is not None:
             eng.apply_policy(policy)
@@ -1881,9 +1945,18 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
             "changed": {k: v for k, v in swap.to_json().items() if v != policy.to_json()[k]}},
         "bit_identical": True, "launches_equal": True,
         "wall_speedup": eager["step_ms"] / graph["step_ms"]}
-    del params, model
+    if keep_recorded:
+        out["recorded"] = (g_rec, g_seen)
+    if own:
+        del params, model
     torch.cuda.empty_cache()
     return out
+
+
+def profile_requests(arch, slots: int, prompt_len: int) -> list:
+    """The requests of a ``profile_decode`` run: ``slots`` prompts at t = 0."""
+    return poisson_requests(slots, arrival_rate=0.0, prompt_lens=(prompt_len,),
+                            max_new_tokens=PROFILE_GEN, vocab=arch.vocab, seed=1)
 
 
 def graph_line(path: str, prof: dict) -> dict:
@@ -1897,7 +1970,8 @@ def graph_line(path: str, prof: dict) -> dict:
 
 def profile_log(prof: dict) -> dict:
     """A profile's log line: everything but the kernel tables and the twin."""
-    return {k: v for k, v in prof.items() if k not in ("top", "eager", "kernel_counts")}
+    return {k: v for k, v in prof.items()
+            if k not in ("top", "eager", "kernel_counts")}
 
 
 def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0,
@@ -3017,6 +3091,298 @@ def time_kernels(launches: dict, errs: dict) -> list:
     return rows
 
 
+# ------------------------------------------- the ISA entry points and moe ----
+# (imported inside the functions: kernel_timings.py imports this module with
+# older packages, which have none of them)
+
+# the moe configs by name, resolved where they are used: kernel_timings.py
+# imports this module with packages that have no moe config
+OLMOE, GRANITE = "olmoe-1b-7b", "granite-moe-3b-a800m"
+TABLE4_SIZES = (4, 8, 12, 16, 20, 256, 1024)   # benchmarks/bench_table4_gemm.py
+GEMV_SIZES = (4, 8, 16, 32, 4096)              # benchmarks/bench_gemv_softmax.py
+# (op, n, format) of the dataflow checks and timings: every Table IV GEMM,
+# and the GEMVs at the posit formats
+DATAFLOW_CASES = tuple(("gemm", n, f) for f in (F32, P16_1, P8_0) for n in TABLE4_SIZES) + \
+    tuple(("gemv", n, f) for f in (P16_1, P8_0) for n in GEMV_SIZES)
+ALU_OPS = ("posit_add", "posit_sub", "posit_mul")
+MOE_PAGE_BYTES = 65536   # 16 tokens of olmoe's 16 KV heads x 128 at p8, K and V
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Equal bit patterns: codes as integers, floats by their int32 view."""
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got.dtype == want.dtype and torch.equal(got.to(torch.int64), want.to(torch.int64))
+
+
+def signed_codes(codes: torch.Tensor, nbits: int) -> torch.Tensor:
+    """Posit codes as two's-complement integers, which order as the values."""
+    c = codes.cpu().to(torch.int64)
+    return torch.where(c >= 1 << (nbits - 1), c - (1 << nbits), c)
+
+
+def posit_in_bound(name: str, got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor,
+                   fmt) -> int:
+    """Posit codes ``got`` each the rounding of some value within ``tol`` of
+    the f32 ``want``: between the codes of ``want - tol`` and ``want + tol``.
+    Returns the largest distance in code steps from the code of ``want``."""
+    enc = lambda x: signed_codes(codec_ref.encode_ref(x, fmt.es, nbits=fmt.nbits),  # noqa: E731
+                                 fmt.nbits)
+    g = signed_codes(got, fmt.nbits)
+    lo, hi = enc(want - tol), enc(want + tol)
+    assert bool(((g >= lo) & (g <= hi)).all()), f"{name}: a posit result outside the GEMM bound"
+    return int((g - enc(want)).abs().max())
+
+
+def check_alu_fcvt() -> dict:
+    """The true-posit ALU (``core/alu.py``: element-wise torch ops on the
+    card) on every p8 pair and 2^18 sampled p16 pairs at es 0-3, a chain of
+    quire ops (qclr, qma, qms, qneg, qround) over 4,096 quires of each
+    width, and the eight fcvt ops (``core/convert.py``: the codec kernels)
+    on every p8 and p16 code at es 0-3 (every es_out for posit -> posit) and
+    on a float sweep: each bit for bit the same call on the CPU (which
+    tests/test_torch_alu_convert.py holds bit for bit to the reference)."""
+    from repro_torch.core import alu, convert
+
+    a8 = torch.arange(256, dtype=torch.uint8).repeat_interleave(256)
+    b8 = torch.arange(256, dtype=torch.uint8).repeat(256)
+    g = torch.Generator().manual_seed(40)
+    a16 = torch.randint(0, 1 << 16, (1 << 18,), generator=g).to(torch.int32).to(torch.uint16)
+    b16 = torch.randint(0, 1 << 16, (1 << 18,), generator=g).to(torch.int32).to(torch.uint16)
+    alu_values = 0
+    for es in range(4):
+        for op in ALU_OPS:
+            for n, a, b in ((8, a8, b8), (16, a16, b16)):
+                want = getattr(alu, op)(a, b, n, es)
+                got = getattr(alu, op)(a.to(DEV), b.to(DEV), n, es)
+                assert same_bits(got, want), f"{op} p{n} es {es}: card and CPU differ"
+                alu_values += want.numel()
+    quires = 0
+    for n in (8, 16):
+        rows, steps = 4096, 32
+        a = torch.randint(0, 1 << n, (steps, rows), generator=g).to(torch.int32)
+        b = torch.randint(0, 1 << n, (steps, rows), generator=g).to(torch.int32)
+        dt = torch.uint8 if n == 8 else torch.uint16
+        a, b = a.to(dt), b.to(dt)
+        qc, qg = alu.qclr((rows,), n, device="cpu"), alu.qclr((rows,), n, device=DEV)
+        for t in range(steps):
+            op = (alu.qma, alu.qms)[t % 2]
+            qc = op(qc, a[t], b[t], n, t % 4)
+            qg = op(qg, a[t].to(DEV), b[t].to(DEV), n, t % 4)
+            if t % 7 == 6:
+                qc, qg = alu.qneg(qc, n), alu.qneg(qg, n)
+        assert same_bits(qg, qc), f"p{n} quire limbs: card and CPU differ"
+        for es in range(4):
+            assert same_bits(alu.qround(qg, n, es), alu.qround(qc, n, es)), \
+                f"p{n} qround es {es}: card and CPU differ"
+        quires += rows
+    before = dict(kernels.LAUNCHES)
+    fcvt_calls = 0
+    for name, n in (("fcvt_s_p8", 8), ("fcvt_s_p16", 16), ("fcvt_p8_p8", 8),
+                    ("fcvt_p8_p16", 16), ("fcvt_p16_p8", 8), ("fcvt_p16_p16", 16)):
+        codes = torch.arange(1 << n, dtype=torch.int32).to(torch.uint8 if n == 8
+                                                            else torch.uint16)
+        fn = getattr(convert, name)
+        for es in range(4):
+            for args in ([(es,)] if name.startswith("fcvt_s_") else
+                         [(es, eo) for eo in range(4)]):
+                assert same_bits(fn(codes.to(DEV), *args), fn(codes, *args)), \
+                    f"{name}{args}: card and CPU differ"
+                fcvt_calls += 1
+    mags = torch.ldexp(1.0 + torch.rand(1 << 16, generator=g),
+                       torch.randint(-140, 121, (1 << 16,), generator=g))
+    sweep = torch.cat([mags * torch.where(torch.rand(1 << 16, generator=g) < 0.5, -1.0, 1.0),
+                       torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                                     1e-45, -1e-40, 2.0 ** 113, -(2.0 ** 113), 2.0 ** 49])])
+    for name in ("fcvt_p8_s", "fcvt_p16_s"):
+        for es in range(4):
+            fn = getattr(convert, name)
+            assert same_bits(fn(sweep.to(DEV), es), fn(sweep, es)), \
+                f"{name} es {es}: card and CPU differ on the float sweep"
+            fcvt_calls += 1
+    codec_launches = {k: kernels.LAUNCHES[k] - before[k] for k in ("posit_decode",
+                                                                   "posit_encode")}
+    assert all(v > 0 for v in codec_launches.values()), codec_launches
+    return {"alu_values": alu_values, "alu_bit_identical": True, "quires": quires,
+            "quire_ops_bit_identical": True, "fcvt_calls": fcvt_calls,
+            "fcvt_bit_identical": True, "fcvt_codec_launches": codec_launches}
+
+
+def table4_operands(n: int, fmt, seed: int = 0, x_only: bool = False):
+    """bench_table4_gemm.py's operands on the card: normal (n, n) A and B
+    (a GEMV's x of (n,)), encoded to ``fmt``."""
+    g = gen(seed)
+    a = torch.randn((n, n), generator=g, device=DEV)
+    b = torch.randn((n,) if x_only else (n, n), generator=g, device=DEV)
+    if isinstance(fmt, PositFmt):
+        a, b = (codec_ops.encode(t, fmt.es, nbits=fmt.nbits) for t in (a, b))
+    return a, b
+
+
+def check_dataflows() -> dict:
+    """``posit_dot``'s fused and unfused dataflows at Table IV's sizes (F32,
+    P16_1, P8_0; n = 4 to 1,024) and ``posit_gemv`` at the paper's GEMV
+    sizes, on the card against the plain versions on the CPU: with an f32
+    rd within the GEMM bound of the plain version's sums; with rd the
+    operands' format, each code the rounding of a value within that bound
+    (near a cancellation an f32 sum in another order moves a small result
+    by many posit steps). The fused dataflow makes one ``posit_gemm`` call
+    and no codec call (past LARGE_M rows that call's large-M route decodes
+    posit A and B to bf16 in passes of its own: ``dataflow_timings`` names
+    every kernel); the unfused one decodes each posit operand with the
+    decode kernel, then one GEMM call on the floats, then the encode kernel
+    for a posit rd. Whether the two give the same bits on the card is
+    recorded."""
+    from repro_torch.core.dot import format_pair_plan, posit_dot, posit_gemv
+    from repro_torch.core.pcsr import OperandSlots
+
+    worst, ratio, worst_steps, same, cases = 0.0, 0.0, 0, 0, 0
+    launches = {}
+    for op, n, fmt in DATAFLOW_CASES:
+        gemv = op == "gemv"
+        fn = posit_gemv if gemv else posit_dot
+        cd = format_pair_plan(fmt, fmt).compute_dtype
+        a, b = table4_operands(n, fmt, seed=n, x_only=gemv)
+        av = operand_values(a.cpu(), fmt)
+        bv = operand_values(b.cpu(), fmt)
+        bv = bv[:, None] if gemv else bv
+        tol = 2 * n * U * torch.matmul(av.to(cd).float().abs(), bv.abs())
+        out = {}
+        for impl in ("fused", "unfused") if isinstance(fmt, PositFmt) else ("fused",):
+            want = None
+            for rd in (F32,) if gemv else (F32, fmt):
+                slots = OperandSlots(rs1=fmt, rs2=fmt, rd=rd)
+                kernels.reset_launches()
+                got = fn(a, b, slots, impl=impl)
+                torch.cuda.synchronize()
+                key = f"{op}/{n}/{fmt.name}/{impl}/rd_{rd.name}"
+                launches[key] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                assert launches[key].get("posit_decode", 0) == (2 if impl == "unfused" else 0), \
+                    (key, launches[key])
+                got = got.cpu().reshape(n, -1)
+                if rd == F32:
+                    want = fn(a.cpu(), b.cpu(), slots, impl=impl).reshape(n, -1)
+                    res = gemm_bound_check(key, got, want, av, lambda sl: bv[:, sl], cd, n)
+                    worst = max(worst, res["max_abs_err"])
+                    ratio = max(ratio, res["err_over_bound"])
+                else:
+                    worst_steps = max(worst_steps, posit_in_bound(
+                        key, got, want, tol + 8 * U * want.abs(), fmt))
+                out[(impl, rd.name)] = got
+                cases += 1
+        if isinstance(fmt, PositFmt):
+            for rd in (F32,) if gemv else (F32, fmt):
+                same += int(same_bits(out[("fused", rd.name)], out[("unfused", rd.name)]))
+    DETAILS["dataflow_launches"] = launches
+    return {"cases": cases, "max_abs_err": worst, "err_over_bound": ratio,
+            "max_posit_steps_from_plain_f32": worst_steps, "fused_equals_unfused_pairs": same}
+
+
+def dataflow_timings() -> dict:
+    """Fused against unfused ``posit_dot`` at Table IV's sizes (rd the
+    operands' format, as bench_table4_gemm.py calls ``gemm``) and
+    ``posit_gemv`` (f32 rd, bench_gemv_softmax.py's slots): each call's
+    device time (every kernel it launches, torch.profiler) and its time
+    from CUDA events around back-to-back calls (the host's launches
+    included: at these sizes the dataflows' extra passes cost launches more
+    than bytes), each kernel's launches and device us a call (under
+    ``<impl>_kernels``: the large-M route's bf16 decode passes of a fused
+    call show there), and unfused over fused for both: the card's answer
+    to the paper's 2.54x."""
+    from repro_torch.core.dot import posit_dot, posit_gemv
+    from repro_torch.core.pcsr import OperandSlots
+
+    rows = []
+    for op, n, fmt in DATAFLOW_CASES:
+        gemv = op == "gemv"
+        a, b = table4_operands(n, fmt, seed=n, x_only=gemv)
+        slots = OperandSlots(rs1=fmt, rs2=fmt, rd=F32 if gemv else fmt)
+        row = {"op": op, "n": n, "fmt": fmt.name}
+        for impl in ("fused", "unfused") if isinstance(fmt, PositFmt) else ("fused",):
+            fn = ((lambda i=impl: posit_gemv(a, b, slots, impl=i)) if gemv else
+                  (lambda i=impl: posit_dot(a, b, slots, impl=i)))
+            row[f"{impl}_kernels"] = {}
+            row[f"{impl}_device_ms"] = time_ms(fn, kernels_out=row[f"{impl}_kernels"])
+            row[f"{impl}_event_ms"] = event_ms(fn, windows=5, calls=20)
+        if "unfused_device_ms" in row:
+            row["unfused_over_fused_device"] = row["unfused_device_ms"] / row["fused_device_ms"]
+            row["unfused_over_fused_event"] = row["unfused_event_ms"] / row["fused_event_ms"]
+        rows.append(row)
+    return {"rows": rows}
+
+
+def moe_gemm_launches(cfg, steps: int, prefills: int) -> dict:
+    """The GEMM launches of ``steps`` decode steps at 4 slots and
+    ``prefills`` 64-token prompts on a moe model: a layer's four attention
+    projections, its router and three products an expert, at M = 4 (the
+    router, attention) or C = 8 rows (the experts) in a decode step, on the
+    decode tile (``posit_gemm``); at M = 64 or C = 16 rows in a prefill, on
+    the mid-M kernel; lm_head at M = 4 a step and at one row a prefill (the
+    decode tile)."""
+    per_layer = 4 + 1 + 3 * cfg.n_experts
+    return {"posit_gemm": steps * (cfg.n_layers * per_layer + 1) + prefills,
+            "posit_gemm_mid_tc": prefills * cfg.n_layers * per_layer}
+
+
+def run_moe_path() -> tuple[dict, dict]:
+    """olmoe-1b-7b at full width and depth (16 layers, d 2,048, 64 experts
+    top-8, d_ff 1,024), random weights from seed 0, P8_SERVE, 8 requests
+    (prompt 64, gen 16, 4 slots, greedy) through the continuous-batching
+    engine (``serve``): every expert product on the GEMM kernel (the decode
+    tile at C = 8 rows, the mid-M kernel at a 64-token prefill's C = 16),
+    counted exactly."""
+    events = []
+    kernels.reset_launches()
+    olmoe = get_arch(OLMOE)
+    report = serve(OLMOE, policy="p8-serve", max_slots=4, requests=8, prompt_len=64,
+                   gen=16, seed=0, device="cuda", emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert report["requests"] == 8, report["requests"]
+    assert all(n == 16 for n in report["completion_tokens"].values()), report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the moe path"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the KV cache"
+    run = report["kernel_launches"]
+    want = moe_gemm_launches(olmoe, report["decode_steps"], 8)
+    for k, v in want.items():
+        assert run[k] == v, f"moe path: {run[k]} {k} launches, {v} expected ({run})"
+    assert run["posit_attention"] == report["decode_steps"] * olmoe.n_layers, run
+    DETAILS["moe_serve_events"] = events
+    return report, launches
+
+
+def run_moe_paged(model, params, recorded) -> dict:
+    """olmoe-1b-7b P8_SERVE (``model``, ``params``): ``profile_decode``'s 4
+    requests (prompt 64, gen PROFILE_GEN) served by the paged engine at 4
+    slots (pages of 16 tokens), its decode step captured, against the slot
+    grid's captured run of the same requests in that profile
+    (``recorded``): the same tokens and every decode step's logits bit for
+    bit."""
+    from repro_torch.core.pcsr import P8_SERVE as pol
+    from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine as Paged
+
+    olmoe = get_arch(OLMOE)
+    eng = Paged(model, params, pol, max_slots=4, S_max=64 + PROFILE_GEN,
+                page_bytes=MOE_PAGE_BYTES)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tokens, seen = served_recorded(eng, profile_requests(olmoe, 4, 64))
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    captured = type(eng._decode).__name__ == "CapturedStep"
+    steps = eng.steps
+    del eng
+    torch.cuda.empty_cache()
+    assert captured, "moe paged: the decode step was not captured"
+    g_tokens, g_seen = recorded
+    assert tokens == g_tokens, "moe: paged tokens differ from the grid's"
+    assert_bit_identical(seen, g_seen, "moe: paged against grid at 4 slots")
+    assert launches.get("posit_attention", 0) == 0 and launches["posit_attention_paged"] > 0
+    return {"bit_identical_steps": len(seen), "tokens_equal": True, "decode_steps": steps,
+            "wall_s": wall, "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3047,6 +3413,12 @@ def main() -> int:
     log("attention_paged", **paged_res)
     softmax_res = check_softmax()
     log("softmax", **softmax_res)
+    t0 = time.perf_counter()
+    alu_res = check_alu_fcvt()
+    log("alu_fcvt", seconds=time.perf_counter() - t0, **alu_res)
+    t0 = time.perf_counter()
+    dataflow_res = check_dataflows()
+    log("dataflows", seconds=time.perf_counter() - t0, **dataflow_res)
     from repro_torch.core.policy import get_precision_policy
 
     mixed_policy = get_precision_policy(MIXED, base=P8_SERVE)
@@ -3056,6 +3428,10 @@ def main() -> int:
     log("reduced_model_" + MIXED + "_p8_serve", **check_small_model(QWEN, mixed_policy))
     log("reduced_model_quire", **check_small_model(PHI3, parse_policy(QUIRE_SPEC), 2e-3))
     log("reduced_model_long_prefill", **check_small_model(prompt_len=300))
+    olmoe = get_arch(OLMOE)
+    log("reduced_model_olmoe", **check_small_model(olmoe))
+    log("reduced_model_olmoe_" + MIXED, **check_small_model(olmoe, mixed_policy))
+    log("reduced_model_granite", **check_small_model(get_arch(GRANITE)))
 
     keys = ("arch", "requests", "tokens", "decode_tok_per_s", "p50_token_ms", "p95_token_ms",
             "p50_ttft_ms", "decode_steps", "setup_s", "makespan_s", "kv_bytes_per_token",
@@ -3101,6 +3477,12 @@ def main() -> int:
     log("paged_serve", seconds=time.perf_counter() - t0, launches=ps_launches,
         **{k: ps_report[k] for k in keys + ("mode", "prefix_cache")})
     DETAILS["paged_serve_report"] = ps_report
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_report, moe_launches = run_moe_path()
+    log("moe_path", seconds=time.perf_counter() - t0, launches=moe_launches,
+        **{k: moe_report[k] for k in keys + ("weight_bytes_policy", "weight_bytes_f32")})
+    DETAILS["moe_serve_report"] = moe_report
     # P8_SERVE swaps to f32 compute over its live rows in the recorded run
     prof = profile_decode(swap=dataclasses.replace(P8_SERVE, compute_dtype="f32"))
     log("profile", **profile_log(prof))
@@ -3161,10 +3543,29 @@ def main() -> int:
         7 * QWEN.n_layers + 1, pg16_prof["gemm_kernels_per_step"]
     assert_kv_write_fused(pg16_prof, QWEN, "paged, 16 slots", attention="posit_attention_paged")
     DETAILS["paged16_decode_profile"] = pg16_prof
+    # olmoe built once for its profile and its paged run
+    moe_model = build_model(olmoe)
+    moe_params = moe_model.init(0, P8_SERVE)
+    moe_prof = profile_decode(olmoe, model=moe_model, params=moe_params, keep_recorded=True)
+    moe_recorded = moe_prof.pop("recorded")
+    log("profile_moe", **profile_log(moe_prof))
+    # one attention launch a layer and no encode; a layer's 4 + 1 + 3 x 64
+    # linears and lm_head on the decode tiles
+    per_step = moe_prof["launches_per_step"]
+    assert per_step["posit_attention"] == olmoe.n_layers and per_step["posit_encode"] == 0, \
+        per_step
+    assert per_step["posit_gemm"] == moe_gemm_launches(olmoe, 1, 0)["posit_gemm"], per_step
+    t0 = time.perf_counter()
+    moe_paged = run_moe_paged(moe_model, moe_params, moe_recorded)
+    log("moe_paged", seconds=time.perf_counter() - t0, **moe_paged)
+    del moe_model, moe_params, moe_recorded
+    torch.cuda.empty_cache()
+    DETAILS["moe_decode_profile"] = moe_prof
     # every profiled path's decode step is one captured graph, bit for bit its
     # eager twin (asserted in profile_decode)
     for path, p in (("p8_serve", prof), ("long", l_prof), ("mixed", m_prof),
-                    ("quire", q_prof), ("paged", pg_prof), ("paged16", pg16_prof)):
+                    ("quire", q_prof), ("paged", pg_prof), ("paged16", pg16_prof),
+                    ("moe", moe_prof)):
         log("graph_vs_eager", **graph_line(path, p))
         assert p["captured"], f"the {path} engine did not capture its decode step"
     # phase 5t after the profiles: its 40 GB of allocations and its own
@@ -3178,6 +3579,9 @@ def main() -> int:
         log("train_path", seconds=time.perf_counter() - t0, **train_lines[policy])
         torch.cuda.empty_cache()
     DETAILS["train_paths"] = train_lines
+    t0 = time.perf_counter()
+    DETAILS["dataflow_timings"] = dataflow_timings()
+    log("dataflow_timings", seconds=time.perf_counter() - t0, **DETAILS["dataflow_timings"])
 
     errs = {"posit_encode": codec_res["encode_max_abs_err"],
             "posit_decode": codec_res["decode_max_abs_err"],
@@ -3193,6 +3597,7 @@ def main() -> int:
                                 "mixed_f32": f_launches, "quire": q_launches,
                                 "long": l_launches, "softmax": sm_launches,
                                 "paged": p_launches, "paged_serve": ps_launches,
+                                "moe": moe_launches,
                                 **{"train_" + k: v["launches_run"]
                                    for k, v in train_lines.items()}}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],

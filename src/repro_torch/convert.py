@@ -6,7 +6,8 @@ reference's ``quantize_params`` (per-layer precision policies included).
 Codes stay codes and floats stay floats, with no rounding on the way: a
 stacked ``w_packed`` of packed p8 lanes, (L, ceil(K/2), N) uint16, becomes
 each layer's (ceil(K/2), N) uint16 bit for bit. The stacked ``blocks`` axis
-becomes a list of per-layer dicts.
+becomes a list of per-layer dicts; a moe layer's stacked expert leaves,
+(L, E, D, F) float or codes, become its (E, D, F).
 
 ``opt_state_from_jax`` does the same for the reference's AdamW state (float
 or posit-coded moments, the error-feedback residuals, the step count), and
@@ -32,7 +33,7 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 def params_from_jax(tree: dict, cfg: ModelCfg, device="cuda") -> dict:
     """The port's parameters for the reference tree ``tree`` of model ``cfg``."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     dev = resolve_device(device)
     blocks = tree["blocks"]

@@ -461,26 +461,29 @@ def float_linear(x: torch.Tensor, w: torch.Tensor, *, compute_dtype: torch.dtype
     return FloatLinear.apply(x, w, bias, residual, activation, compute_dtype)
 
 
+GEMM_IMPLS = ("auto", "pallas", "xla", "unfused", "quire")
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, slots: OperandSlots, *,
          es_a: Optional[int] = None, es_b: Optional[int] = None,
          es_out: Optional[int] = None, bias=None, activation: str = "none",
-         residual=None) -> torch.Tensor:
+         residual=None, impl: str = "auto") -> torch.Tensor:
     """O = epilogue(decode(A) @ decode(B)) -> encode, per the pcsr slots.
-    A pcsr with ``dataflow="quire"`` routes to the exact-accumulation kernel
-    (``kernels.posit_quire_gemm``), which unpacks a packed B first."""
-    if slots.dataflow == "quire":
-        from repro_torch.kernels.posit_quire_gemm.ops import quire_gemm
 
-        return quire_gemm(a, b, slots, es_a=es_a, es_b=es_b, es_out=es_out, bias=bias,
-                          activation=activation, residual=residual)
+    ``impl`` as in the reference: "pallas" and "xla" both mean the fused
+    kernel here (one launch of ``posit_gemm``); "unfused" the codec kernel's
+    decode passes, the GEMM kernel on floats, then the epilogue and encode
+    passes; "quire" the exact-accumulation kernel
+    (``kernels.posit_quire_gemm``, which unpacks a packed B first); "auto"
+    the quire where ``slots.dataflow`` says so, else the fused kernel
+    (``core.dot.posit_dot`` dataflows)."""
+    from repro_torch.core.dot import posit_dot
 
-    def _es(x, fmt):
-        if x is not None:
-            return x
-        return fmt.es if isinstance(fmt, PositFmt) else 0
-
-    return posit_gemm(a, b, (_es(es_a, slots.rs1), _es(es_b, slots.rs2),
-                             _es(es_out, slots.rd)),
-                      a_fmt=slots.rs1, b_fmt=slots.rs2, out_fmt=slots.rd,
-                      bias=bias, residual=residual, activation=activation,
-                      b_packed=slots.rs2_packed, codec_impl=slots.codec_impl)
+    if impl not in GEMM_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}: one of {GEMM_IMPLS}")
+    if impl == "auto":
+        impl = "quire" if slots.dataflow == "quire" else "fused"
+    elif impl in ("pallas", "xla"):
+        impl = "fused"
+    return posit_dot(a, b, slots, es_a=es_a, es_b=es_b, es_out=es_out, impl=impl, bias=bias,
+                     activation=activation, residual=residual)

@@ -95,9 +95,11 @@ def _quantize_resolved(p: dict, pol: TransPolicy) -> dict:
 
 
 def effective_weight(p: dict, policy, es: Optional[int] = None, path: str = "") -> torch.Tensor:
-    """The weight as the matmul datapath sees it: posit codes (packed lanes
-    included) decode; a float weight under a posit policy is quantized in the
-    reference's straight-through form ``w + stop_gradient(q(w) - w)``, whose
+    """The weight as the matmul datapath sees it (a linear's, or a whole MoE
+    expert stack passed as ``{"w_codes": ...}`` or ``{"w": ...}``): posit
+    codes (packed lanes included) decode; a float weight under a posit
+    policy is quantized in the reference's straight-through form
+    ``w + stop_gradient(q(w) - w)``, whose
     gradient with respect to ``w`` is the identity; a float weight without
     one passes as it is. The encode and decode run through the codec
     kernels."""
@@ -193,16 +195,33 @@ def _quire_linear(p: dict, x: torch.Tensor, policy: TransPolicy, fmt: PositFmt, 
 
 
 _WEIGHT_KEYS = ("w", "w_codes", "w_packed")
+# MoE's stacked expert tensors (E, K, N): quantized to "<name>_codes", never
+# packed (the expert GEMMs read each expert's codes whole)
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+_EXPERT_LEAVES = EXPERT_KEYS + tuple(k + "_codes" for k in EXPERT_KEYS)
+
+
+def quantize_expert_stack(name: str, w: torch.Tensor, fmt: PositFmt) -> dict:
+    """An expert stack ``name`` (E, K, N) float as ``{name + "_codes": codes}``."""
+    return {name + "_codes": codec_ops.encode(w.to(torch.float32).contiguous(), fmt.es,
+                                              nbits=fmt.nbits)}
 
 
 def _walk_linears(tree, path=""):
-    """Yield (path, parent) for every linear-shaped param dict, float or
-    quantized."""
+    """Yield (path, parent, key) for every linear weight, float or quantized:
+    a linear dict's weight (``key`` "w", "w_codes" or "w_packed") at the
+    dict's path, and each expert stack ("w_gate", ... or its "_codes") at
+    ``path/<name>``, as the reference names them."""
     if isinstance(tree, dict):
-        if any(getattr(tree.get(k), "ndim", 0) >= 2 for k in _WEIGHT_KEYS):
-            yield path, tree
+        for k in _WEIGHT_KEYS:
+            if getattr(tree.get(k), "ndim", 0) >= 2:
+                yield path, tree, k
+        for k in _EXPERT_LEAVES:
+            if getattr(tree.get(k), "ndim", 0) >= 2:
+                name = k.removesuffix("_codes")
+                yield (f"{path}/{name}" if path else name), tree, k
         for k, v in tree.items():
-            if k not in _WEIGHT_KEYS:
+            if k not in _WEIGHT_KEYS + _EXPERT_LEAVES:
                 yield from _walk_linears(v, f"{path}/{k}" if path else k)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
@@ -213,16 +232,21 @@ def quantize_params(params, policy):
     """Quantize every float linear weight to its layer's format (per-layer
     under a ``PrecisionPolicy``): packed lanes where the resolved policy packs
     p8 weights and the contraction dim is even, plain codes otherwise, left
-    float without a posit weight format. Works on a copy of the dict/list
-    spine; leaves are shared, float masters untouched."""
+    float without a posit weight format; MoE expert stacks to
+    "<name>_codes", unpacked. Works on a copy of the dict/list spine; leaves
+    are shared, float masters untouched."""
     out = tree_map(lambda leaf: leaf, params)     # a new dict/list spine, leaves shared
-    for path, parent in _walk_linears(out):
-        if "w" not in parent:
+    for path, parent, key in list(_walk_linears(out)):
+        if key not in ("w",) + EXPERT_KEYS:
             continue
-        q = _quantize_resolved(parent, resolve_policy(policy, path))
-        if q is not parent:
-            parent.pop("w")
-            parent.update(q)
+        pol = resolve_policy(policy, path)
+        if key == "w":
+            q = _quantize_resolved(parent, pol)
+            if q is not parent:
+                parent.pop("w")
+                parent.update(q)
+        elif pol.weights is not None:
+            parent.update(quantize_expert_stack(key, parent.pop(key), pol.weights))
     return out
 
 
@@ -231,9 +255,8 @@ def policy_weight_bytes(params, policy) -> dict:
     Table-IV saving at model scale); packed p8 counts one byte a value.
     ``params`` may be float or already quantized."""
     f32_b = policy_b = 0
-    for path, parent in _walk_linears(params):
-        n = (parent["w_packed"].numel() * 2 if "w_packed" in parent
-             else (parent["w_codes"] if "w_codes" in parent else parent["w"]).numel())
+    for path, parent, key in _walk_linears(params):
+        n = parent[key].numel() * (2 if key == "w_packed" else 1)
         f32_b += 4 * n
         fmt = resolve_policy(policy, path).weights
         policy_b += n * (fmt.storage_bytes if fmt is not None else 4)

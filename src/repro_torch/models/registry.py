@@ -1,4 +1,5 @@
-"""Model registry: one uniform interface over the ported families.
+"""Model registry: one uniform interface over the ported families (dense and
+moe; ``loss`` and ``forward`` train the dense family only).
 
   model = build_model(cfg)                 # device="cuda" unless told otherwise
   params = model.init(seed, policy)        # quantized layer by layer under a posit policy
@@ -37,9 +38,10 @@ class Model:
 
 
 def build_model(cfg: ModelCfg, device="cuda") -> Model:
-    if cfg.family != "dense":
+    if cfg.family not in transformer.SERVED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port serves the dense family")
+            f"family {cfg.family!r} is not ported yet; the port serves "
+            f"{transformer.SERVED_FAMILIES}")
     dev = resolve_device(device)
 
     def init(seed: int, policy=None) -> dict:

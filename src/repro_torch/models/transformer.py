@@ -1,7 +1,9 @@
-"""Decoder-only LM assembly for the dense family: init, ``forward`` and the
-sequence-chunked loss ``lm_loss`` (training), cache init, prefill and
-decode_step (the serving path), and the paged serving cache and step
-(``init_paged_cache``, ``decode_step_paged``).
+"""Decoder-only LM assembly for the dense and moe families: init, cache
+init, prefill and decode_step (the serving path), the paged serving cache
+and step (``init_paged_cache``, ``decode_step_paged``); for the dense family
+also ``forward`` and the sequence-chunked loss ``lm_loss`` (training).
+A moe block holds ``"moe"`` (``models/moe.py``) where a dense one holds
+``"mlp"``.
 
 Parameters: ``{"embed": {"table"}, "blocks": [per-layer dicts], "final_norm",
 "lm_head"}``; the reference stacks the layers on a leading axis instead
@@ -25,14 +27,41 @@ from repro_torch.models.layers import (apply_embedding, apply_linear, apply_rmsn
                                        apply_swiglu, check_ported, embedding_logits,
                                        init_embedding, init_linear, init_rmsnorm,
                                        init_swiglu, rope_tables)
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 LOSS_CHUNK = 1024  # sequence-chunked CE to bound peak logits memory
 
 
+SERVED_FAMILIES = ("dense", "moe")
+
+
+def _require_served(cfg: ModelCfg) -> None:
+    if cfg.family not in SERVED_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (the port serves {SERVED_FAMILIES})")
+
+
 def _require_dense(cfg: ModelCfg) -> None:
+    """Training (``forward``, ``lm_loss``) is ported for the dense family."""
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            "training the moe family (its forward and aux loss) is not ported yet: "
+            "Queue 1 item 5b")
     if cfg.family != "dense":
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense only)")
+
+
+def _ffn(p: dict, h: torch.Tensor, x: torch.Tensor, cfg: ModelCfg,
+         policy: TransPolicy) -> torch.Tensor:
+    """The block's feed-forward on ``h`` plus its residual ``x``: the dense
+    MLP (the residual fused into the down projection) or the moe layer (the
+    residual added after it, as in the reference)."""
+    if "moe" in p:
+        y = apply_moe(p["moe"], h, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                      policy=policy)
+        return x + y
+    return apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
 
 
 def attn_cfg(cfg: ModelCfg) -> AttnCfg:
@@ -47,19 +76,27 @@ def init_lm(gen: torch.Generator, cfg: ModelCfg, *, device="cuda",
     format its param-tree path resolves to (``blocks/attn/wq``, ...,
     ``lm_head``: a ``PrecisionPolicy`` may give each its own, packed lanes
     included), so the peak memory is one f32 linear above the codes (a
-    full-size model never exists in f32)."""
-    _require_dense(cfg)
+    full-size model never exists in f32; a moe layer's expert stacks are
+    quantized one stack at a time)."""
+    _require_served(cfg)
     device = resolve_device(device)
     acfg = attn_cfg(cfg)
     params = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, device=device)}
-    params["blocks"] = [
-        {"ln1": init_rmsnorm(cfg.d_model, device=device),
-         "attn": attn.init_attention(gen, acfg, device=device, policy=policy,
-                                     path="blocks/attn"),
-         "ln2": init_rmsnorm(cfg.d_model, device=device),
-         "mlp": init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device, policy=policy,
-                            path="blocks/mlp")}
-        for _ in range(cfg.n_layers)]
+
+    def block() -> dict:
+        p = {"ln1": init_rmsnorm(cfg.d_model, device=device),
+             "attn": attn.init_attention(gen, acfg, device=device, policy=policy,
+                                         path="blocks/attn"),
+             "ln2": init_rmsnorm(cfg.d_model, device=device)}
+        if cfg.family == "moe":
+            p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, device=device,
+                                policy=policy, path="blocks/moe")
+        else:
+            p["mlp"] = init_swiglu(gen, cfg.d_model, cfg.d_ff, device=device, policy=policy,
+                                   path="blocks/mlp")
+        return p
+
+    params["blocks"] = [block() for _ in range(cfg.n_layers)]
     params["final_norm"] = init_rmsnorm(cfg.d_model, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(gen, cfg.d_model, cfg.vocab, device=device,
@@ -140,7 +177,7 @@ def lm_loss(params: dict, batch: dict, cfg: ModelCfg, policy: TransPolicy, *,
 
 def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,
                device="cuda") -> dict:
-    _require_dense(cfg)
+    _require_served(cfg)
     device = resolve_device(device)
     return {
         "kv": attn.init_kv_cache(B, S_max, attn_cfg(cfg), policy, device=device,
@@ -161,7 +198,7 @@ def _decode_layers(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelC
     """The decode step's body, shared by the slot grid and the paged pool:
     ``attend(layer_params, acfg, h, i, rope, residual)`` is layer i's
     attention with the residual fused into wo."""
-    _require_dense(cfg)
+    _require_served(cfg)
     check_ported(policy)
     lens = cache["lens"]
     acfg = attn_cfg(cfg)
@@ -169,10 +206,10 @@ def _decode_layers(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelC
     rope = rope_tables(lens[:, None], acfg.head_dim, acfg.rope_base)
     for i, p in enumerate(params["blocks"]):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
-        # the block residuals fuse into the wo and down projections' epilogues
+        # the residuals fuse into wo's epilogue (and a dense MLP's down projection's)
         x = attend(p["attn"], acfg, h, i, rope, x)
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
+        x = _ffn(p, h, x, cfg, policy)
     h = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_fn(params, h, cfg, policy)[:, 0]
     cache["pos"] += 1
@@ -206,7 +243,7 @@ def init_paged_cache(cfg: ModelCfg, B: int, n_blocks: int, block_tokens: int,
     ``(B, table_width)`` int32 shared by every layer, sentinel-filled
     (``n_blocks``: every entry empty until the engine installs real tables,
     so writes drop and reads are zeros); and the slot grid's ``lens``/``pos``."""
-    _require_dense(cfg)
+    _require_served(cfg)
     device = resolve_device(device)
     return {
         "kv": attn.init_paged_kv_pool(n_blocks, block_tokens, attn_cfg(cfg), policy,
@@ -240,7 +277,7 @@ def decode_step_paged(params: dict, token_t: torch.Tensor, cache: dict, cfg: Mod
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPolicy,
             *, S_max: Optional[int] = None) -> tuple:
     """Run the full prompt, build the cache, return last-position logits."""
-    _require_dense(cfg)
+    _require_served(cfg)
     check_ported(policy)
     B, S = tokens.shape
     S_max = S_max or S
@@ -250,11 +287,11 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPoli
     x = apply_embedding(params["embed"], tokens)
     for i, p in enumerate(params["blocks"]):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
-        # the block residuals fuse into the wo and down projections' epilogues
+        # the residuals fuse into wo's epilogue (and a dense MLP's down projection's)
         x, _ = attn.prefill_attention(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
                                       policy, residual=x, path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
-        x = apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
+        x = _ffn(p, h, x, cfg, policy)
     h = apply_rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = logits_fn(params, h, cfg, policy)[:, 0]
     cache["pos"].fill_(S)

@@ -540,6 +540,9 @@ GRAPH_POLICIES = {
     "p8-serve": ("qwen2.5-14b", lambda: P8_SERVE),
     "mixed": ("qwen2.5-14b", lambda: get_precision_policy("attn-p16-mlp-p8", base=P8_SERVE)),
     "quire": ("phi3-mini-3.8b", lambda: parse_policy("weights=p16_1,kv=p16_1,dataflow=quire")),
+    "moe": ("olmoe-1b-7b", lambda: P8_SERVE),
+    "moe-mixed": ("granite-moe-3b-a800m",
+                  lambda: get_precision_policy("attn-p16-mlp-p8", base=P8_SERVE)),
 }
 
 
@@ -965,3 +968,151 @@ def test_mid_m_gemm_captured_in_a_cuda_graph(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+# ------------------------------------ the ISA entry points and the moe family ----
+
+def _same(got, want):
+    got, want = got.cpu(), want.cpu()
+    if got.dtype == torch.float32:
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got.dtype == want.dtype and torch.equal(got.to(torch.int64), want.to(torch.int64))
+
+
+@pytest.mark.parametrize("nbits", [8, 16])
+def test_alu_and_quire_ops_on_card_match_cpu(dev, nbits):
+    """posit_add / sub / mul (every p8 pair, or 2^18 sampled p16 pairs) at es
+    0-3 and a chain of qma / qms / qneg / qround: the card's bits the CPU's."""
+    from repro_torch.core import alu
+
+    dt = torch.uint8 if nbits == 8 else torch.uint16
+    g = torch.Generator().manual_seed(nbits)
+    if nbits == 8:
+        a = torch.arange(256, dtype=torch.int32).repeat_interleave(256).to(dt)
+        b = torch.arange(256, dtype=torch.int32).repeat(256).to(dt)
+    else:
+        a, b = (torch.randint(0, 1 << 16, (1 << 18,), generator=g).to(torch.int32).to(dt)
+                for _ in range(2))
+    for es in range(4):
+        for op in ("posit_add", "posit_sub", "posit_mul"):
+            fn = getattr(alu, op)
+            assert _same(fn(a.to(dev), b.to(dev), nbits, es), fn(a, b, nbits, es)), (op, es)
+    qa, qb = (torch.randint(0, 1 << nbits, (16, 512), generator=g).to(torch.int32).to(dt)
+              for _ in range(2))
+    qc, qg = alu.qclr((512,), nbits, device="cpu"), alu.qclr((512,), nbits, device=dev)
+    for t in range(16):
+        op = alu.qma if t % 3 else alu.qms
+        qc, qg = op(qc, qa[t], qb[t], nbits, t % 4), op(qg, qa[t].to(dev), qb[t].to(dev),
+                                                          nbits, t % 4)
+        if t == 9:
+            qc, qg = alu.qneg(qc, nbits), alu.qneg(qg, nbits)
+    assert _same(qg, qc)
+    for es in range(4):
+        assert _same(alu.qround(qg, nbits, es), alu.qround(qc, nbits, es))
+
+
+def test_fcvt_on_card_matches_cpu(dev):
+    """The eight fcvt ops on every p8 and p16 code (and a float sweep) on the
+    codec kernels: the card's bits the CPU's plain version's."""
+    from repro_torch.core import convert
+
+    before = dict(kernels.LAUNCHES)
+    for name, n in (("fcvt_s_p8", 8), ("fcvt_s_p16", 16), ("fcvt_p8_p8", 8),
+                    ("fcvt_p8_p16", 16), ("fcvt_p16_p8", 8), ("fcvt_p16_p16", 16)):
+        codes = torch.arange(1 << n, dtype=torch.int32).to(torch.uint8 if n == 8
+                                                            else torch.uint16)
+        fn = getattr(convert, name)
+        for es in range(4):
+            args = (es,) if name.startswith("fcvt_s_") else (es, 3 - es)
+            assert _same(fn(codes.to(dev), *args), fn(codes, *args)), (name, args)
+    x = torch.cat([torch.randn(4096) * s for s in (1e-30, 1e-3, 1.0, 1e3, 1e30)]
+                  + [torch.tensor([0.0, -0.0, float("inf"), float("nan")])])
+    for name in ("fcvt_p8_s", "fcvt_p16_s"):
+        for es in range(4):
+            assert _same(getattr(convert, name)(x.to(dev), es), getattr(convert, name)(x, es))
+    assert kernels.LAUNCHES["posit_decode"] > before["posit_decode"]
+    assert kernels.LAUNCHES["posit_encode"] > before["posit_encode"]
+
+
+@pytest.mark.parametrize("n", [4, 20, 256])
+@pytest.mark.parametrize("fmt", [P8_0, P16_1, F32], ids=["p8", "p16", "f32"])
+def test_posit_dot_dataflows_on_card(dev, fmt, n):
+    """Table IV's GEMM and the GEMV, fused and unfused, on the card: an f32
+    rd within the GEMM bound of the CPU's plain version, rd the operands'
+    format each code the rounding of a value within that bound; fused
+    launches no codec kernel, unfused two decodes."""
+    from chip_smoke import U, gemm_bound_check, operand_values, posit_in_bound
+    from repro_torch.core.dot import format_pair_plan, posit_dot, posit_gemv
+
+    g = torch.Generator(device=dev).manual_seed(n)
+    a, b = (torch.randn((n, n), generator=g, device=dev) for _ in range(2))
+    posit = fmt != F32
+    if posit:
+        a, b = (codec_ops.encode(t, fmt.es, nbits=fmt.nbits) for t in (a, b))
+    cd = format_pair_plan(fmt, fmt).compute_dtype
+    av, bv = operand_values(a.cpu(), fmt), operand_values(b.cpu(), fmt)
+    for impl in ("fused", "unfused") if posit else ("fused",):
+        f32 = OperandSlots(rs1=fmt, rs2=fmt, rd=F32)
+        kernels.reset_launches()
+        got = posit_dot(a, b, f32, impl=impl).cpu()
+        assert kernels.LAUNCHES["posit_decode"] == (2 if impl == "unfused" else 0)
+        want = posit_dot(a.cpu(), b.cpu(), f32, impl=impl)
+        gemm_bound_check(impl, got, want, av, lambda sl: bv[:, sl], cd, n)
+        if posit:
+            tol = 2 * n * U * torch.matmul(av.to(cd).float().abs(), bv.abs()) \
+                + 8 * U * want.abs()
+            posit_in_bound(impl, posit_dot(a, b, OperandSlots(rs1=fmt, rs2=fmt, rd=fmt),
+                                           impl=impl), want, tol, fmt)
+        x = b[:, :1].contiguous()
+        gemm_bound_check(impl, posit_gemv(a, x[:, 0], f32, impl=impl).cpu()[:, None],
+                         posit_gemv(a.cpu(), x[:, 0].cpu(), f32, impl=impl)[:, None], av,
+                         lambda sl: bv[:, :1][:, sl], cd, n)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_reduced_on_card_matches_cpu(dev, arch):
+    """A reduced moe model, P8_SERVE, prefill + 3 decode steps: the card's
+    logits within 0.05 of the CPU's plain versions (bf16 activations and p8
+    K/V: one flipped rounding moves a logit ~1e-2)."""
+    cfg = get_arch(arch).reduced()
+    cpu, gpu = build_model(cfg, device="cpu"), build_model(cfg)
+    params = cpu.init(0, P8_SERVE)
+    params_gpu = _tree_to(params, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    lc, cc = cpu.prefill(params, toks, P8_SERVE, S_max=24)
+    lg, cg = gpu.prefill(params_gpu, toks.to(dev), P8_SERVE, S_max=24)
+    for _ in range(4):
+        assert torch.isfinite(lg).all()
+        assert float((lg.cpu() - lc).abs().max()) <= 0.05
+        tok = lc.argmax(-1).to(torch.int32)
+        lc, cc = cpu.decode_step(params, tok, cc, P8_SERVE)
+        lg, cg = gpu.decode_step(params_gpu, tok.to(dev), cg, P8_SERVE)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_moe_paged_engine_on_card_matches_grid(dev):
+    """Reduced olmoe, P8_SERVE, 6 requests at 4 slots: the paged engine's
+    captured step serves the slot grid's tokens and every sampled logits row
+    bit for bit."""
+    cfg = get_arch("olmoe-1b-7b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    reqs = lambda: poisson_requests(6, arrival_rate=0.0, prompt_lens=(10, 17),  # noqa: E731
+                                    max_new_tokens=6, vocab=cfg.vocab)
+    runs = {}
+    for name, cls, kw in (("grid", ContinuousBatchingEngine, {}),
+                          ("paged", PagedContinuousBatchingEngine, {"page_bytes": 256})):
+        eng = cls(model, params, P8_SERVE, max_slots=4, S_max=32, **kw)
+        assert isinstance(eng._decode, CapturedStep)
+        runs[name] = serve_recorded_timed(eng, reqs())
+    assert runs["paged"]["tokens"] == runs["grid"]["tokens"]
+    assert_bit_identical(runs["paged"]["seen"], runs["grid"]["seen"], "moe paged")
+

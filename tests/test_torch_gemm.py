@@ -335,8 +335,9 @@ def test_p16_weights_bf16_compute_match_pallas(a_name, act, has_bias, has_res):
 
 
 def test_unported_variants_raise():
-    """What stays unported raises: ``posit_dot`` outside the quire (the port
-    reaches those dataflows through ``gemm`` and ``posit_matmul_wx``). Packed
+    """What stays unported raises: ``posit_dot`` with a general
+    ``dimension_numbers`` contraction (its fused and unfused dataflows are
+    ported: tests/test_torch_dot_dataflows.py). Packed
     B, once refused here, is ported: the slot-driven front door takes it and
     gives the packed plain version's bits (held against the Pallas
     ``b_packed`` kernel in ``test_packed_gemm_matches_pallas``). A packed B
@@ -347,7 +348,8 @@ def test_unported_variants_raise():
 
     a = torch.zeros((2, 4), dtype=torch.uint8)
     with pytest.raises(NotImplementedError):
-        posit_dot(a, a.T.contiguous(), OperandSlots.uniform(types.P8_0))
+        posit_dot(a, a.T.contiguous(), OperandSlots.uniform(types.P8_0),
+                  dimension_numbers=(((1,), (0,)), ((), ())))
     with pytest.raises(ValueError):
         posit_gemm(a, a.T.contiguous(), (0, 0, 0), a_fmt=types.P8_0, b_fmt=types.P8_0,
                    out_fmt=types.F32, activation="tanh")

@@ -42,7 +42,7 @@ def _tree_paths():
     shapes = jax.eval_shape(jax_build(cfg).init, jax.random.key(0))
     ref = sorted(p for p, _, _ in jlayers._walk_linears(shapes, ""))
     port_params = build_model(get_arch("qwen2.5-14b").reduced(), device="cpu").init(0)
-    port = sorted(p for p, _ in layers._walk_linears(port_params))
+    port = sorted(p for p, _, _ in layers._walk_linears(port_params))
     assert len(port) == cfg.n_layers * 7 + 1 and len(ref) == 8
     return ref, port
 

@@ -337,8 +337,9 @@ def test_quire_front_doors_refuse_what_they_cannot_take():
     with pytest.raises(ValueError):
         posit_quire_gemm(a, a.T.contiguous(), (1, 1, 1), a_fmt=types.P16_1,
                          b_fmt=types.P16_1, out_fmt=types.BF16)
-    with pytest.raises(NotImplementedError):
-        posit_dot(a, a.T.contiguous(), pcsr.OperandSlots.uniform(types.P16_1))
+    with pytest.raises(NotImplementedError):   # a general contraction
+        posit_dot(a, a.T.contiguous(), pcsr.OperandSlots.uniform(types.P16_1),
+                  dimension_numbers=(((1,), (0,)), ((), ())))
     # packed p8 B, once refused, is ported: it unpacks ahead of the quire
     # (held against the reference in test_quire_gemm_packed_b_bit_exact)
     from repro_torch.core.pack import pack_p8
