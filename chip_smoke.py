@@ -37,6 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      3072 x 8192, p16 at M = 1,024 and packed p8 at M = 130 and 1,024: each
      within the same bound (posit out within 1 ulp), counted under its own
      launch key, two calls bit for bit the same;
+     every whisper-medium linear (q/k/v and frame_proj with a bias, wo
+     and the MLP down with a bias and the residual, the MLP up with a bias
+     and gelu) at the encoder's 6,000 rows (the wgmma kernel) and a decode
+     step's 4;
      the quire GEMM kernel against its plain version, bit for bit, at
      phi3-mini-3.8b's shapes, and against itself unsplit, on Gaussian
      operands and on wide-span ones (every non-NaR code, minpos and maxpos
@@ -45,8 +49,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      packed and on unpacked p8 weights, bit for bit the same;
   4. the decode-attention kernel against its plain version (ATTN_CHECKS:
      qwen2.5-14b's and phi3-mini-3.8b's heads, head_dim 256 at 7 q-heads a KV
-     head, p8, p16 and f32 KV, ragged rows, S up to 4,096), and its fused
-     append (the decode step's call) at S 80 and 4,096: each case within the
+     head, whisper-medium's cross read (16/16 heads, d 64, S 1,500, the
+     no-append mode), p8, p16 and f32 KV, ragged rows, S up to 4,096), and its fused
+     append (the decode step's call) at qwen's heads at S 80 and 4,096 and at
+     whisper-medium's self-attention (16/16, d 64, S 64, ragged positions;
+     APPEND_CHECKS): each case within the
      f32 contract's limit and a tight one that two bf16 controls must fail,
      the cache codes bit for bit those of the encode kernel and the row
      write, the output bit for bit the unfused call's, each row's bits alone
@@ -73,7 +80,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      under the quire) on the card against the same models on the CPU (plain
      versions), the reduced qwen2.5-14b on a 2 x 300-token prompt, whose
      prefill linears run on the wgmma kernel, and the reduced olmoe-1b-7b
-     (P8_SERVE and attn-p16-mlp-p8) and granite-moe-3b-a800m. Then the
+     (P8_SERVE and attn-p16-mlp-p8), granite-moe-3b-a800m and the reduced
+     whisper-medium (the encoder, the cross K/V, 8 teacher-forced and 4
+     greedy steps; ``check_small_whisper``). Then the
      paths, each with
      every kernel's launch count set to 0 just before it and read just after:
      - qwen2.5-14b at full width and depth, random weights from a seed,
@@ -113,6 +122,16 @@ Phases, in order; any failure raises and the script exits non-zero:
        prefill, counted exactly: ``run_moe_path``); then the slot grid and
        the paged engine on the same requests, bit for bit
        (``run_moe_paged``);
+     - the whisper path: whisper-medium at full width and depth (24
+       encoder and 24 decoder layers, d 1,024, 16/16 heads, d_ff 4,096,
+       1,500 frames), P8_SERVE, through ``serve_static``: a batch of 4,
+       the encoder over seeded frames, a 32-token prompt teacher-forced
+       through the captured decode step and 32 greedy tokens, every GEMM,
+       attention and encode launch counted exactly (``run_whisper_path``);
+       then the same batch with the step captured and run eagerly, every
+       step's logits and both caches bit for bit, the captured step
+       profiled (device time, idle share, launches by kernel) and the
+       encoder timed (``whisper_graph_vs_eager``);
      and a profiled decode step of each served model, of the long context
      and of the paged engine (48 paged attention launches a step), each
      from two engines on the same params and requests: the
@@ -177,7 +196,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      torch.matmul (``large_gemm_timings``); fused against unfused
      ``posit_dot`` at Table IV's sizes and ``posit_gemv`` at the paper's
      GEMV sizes, device time and CUDA-event time of a call
-     (``dataflow_timings``).
+     (``dataflow_timings``); whisper's cross read (S 1,500, d 64) beside
+     SDPA and its encoder's up projection (6,000 x 1,024 x 4,096, bias and
+     gelu) beside torch.matmul (``whisper_timings``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
@@ -550,6 +571,17 @@ def gemm_cases():
                   True, "relu", False, torch.bfloat16))
     cases.append(("p8 x p8 out M257 1024x1024", 257, 1024, 1024, P8_0, P8_0, P8_0,
                   True, "none", True))
+    # every whisper-medium linear as the model calls it, at the encoder's
+    # B * T = 4 x 1,500 rows (the wgmma kernel) and a 4-row decode step (the
+    # decode tile): frame_proj, q/k/v and the cross k/v (bias); wo (bias,
+    # the block residual); the MLP up (bias, gelu) and down (bias, residual)
+    for M in (4, 6000):
+        for part, K, N, act, res in (("qkv", 1024, 1024, "none", False),
+                                     ("o", 1024, 1024, "none", True),
+                                     ("up", 1024, 4096, "gelu", False),
+                                     ("down", 4096, 1024, "none", True)):
+            cases.append((f"whisper {part} M{M} {K}x{N}", M, K, N, P8_0, torch.float32, F32,
+                          True, act, res))
     return cases
 
 
@@ -1055,8 +1087,9 @@ def attn_inputs(kv_bits, *, B=4, Hq=40, Hkv=8, d=128, S=512, lengths=(0, 1, 300,
 
 
 # (name, kv_bits, es, Hq, Hkv, d, S, lengths) of phase 4's kernel checks:
-# qwen2.5-14b's heads (40/8, d 128), phi3-mini-3.8b's (32/32, d 96) and
-# gemma3-4b's head_dim (256) at 7 q-heads a KV head; ragged rows (0, 1, mid, S)
+# qwen2.5-14b's heads (40/8, d 128), phi3-mini-3.8b's (32/32, d 96),
+# gemma3-4b's head_dim (256) at 7 q-heads a KV head and whisper-medium's
+# cross read (16/16, d 64, S 1,500, no append); ragged rows (0, 1, mid, S)
 ATTN_CHECKS = (
     ("qwen p8 S512", 8, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
     ("qwen p16 S512", 16, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
@@ -1065,6 +1098,20 @@ ATTN_CHECKS = (
     ("phi3 p16_1 d96 S4096", 16, 1, 32, 32, 96, 4096, (0, 1, 2051, 4096)),
     ("d256 7 q-heads p8 S4096", 8, 0, 28, 4, 256, 4096, (0, 1, 2051, 4096)),
     ("d256 7 q-heads f32 S1000", 0, 0, 28, 4, 256, 1000, (0, 1, 513, 1000)),
+    # whisper-medium's cross read: 16/16 heads, d 64, the 1,500 encoder rows
+    ("whisper cross p8 d64 S1500", 8, 0, 16, 16, 64, 1500, (0, 1, 751, 1500)),
+)
+
+
+# (name, kv_bits, Hq, Hkv, d, S, lengths, pos) of the fused append's checks
+# (the decode step's call): qwen2.5-14b's heads, a row at pos >= S
+# untouched, and whisper-medium's self-attention (16/16, d 64) at ragged
+# positions
+APPEND_CHECKS = (
+    ("append p8 S80", 8, 40, 8, 128, 80, (3, 80, 80, 0), (2, 80, 79, 0)),
+    ("append p8 S4096", 8, 40, 8, 128, 4096, (3, 4096, 4096, 0), (2, 4096, 4095, 0)),
+    ("append p16 S4096", 16, 40, 8, 128, 4096, (3, 4096, 4096, 0), (2, 4096, 4095, 0)),
+    ("whisper self append p8 d64 S64", 8, 16, 16, 64, 64, (3, 64, 33, 1), (2, 64, 32, 0)),
 )
 
 
@@ -1118,8 +1165,8 @@ def check_attention() -> dict:
     score dot, the softmax sum and the PV sum run in other orders) and within
     the tight limit, which the bf16 controls must fail; at S = 80 a bf16 P
     must fail the contract's limit as well (why P and q take three pieces).
-    Length-0 rows exact zeros; the fused append (the decode step's call) at
-    qwen's heads: its cache codes bit for bit those of the encode kernel +
+    Length-0 rows exact zeros; the fused append (the decode step's call) on
+    every APPEND_CHECKS case: its cache codes bit for bit those of the encode kernel +
     the row write, a row at pos >= S untouched, its output bit for bit the
     unfused kernel's on the written cache; each row's bits alone and inside
     the batch; the CPU emulation's warps a block those of the kernel."""
@@ -1134,10 +1181,11 @@ def check_attention() -> dict:
             attn_ops.kernel_warps(kv_bits, k.dtype, d), f"attention {name}: warps a block"
         del q, k, v, got
     appended = []
-    for kv_bits, S in ((8, 80), (8, 4096), (16, 4096)):
-        q, k, v, lens = attn_inputs(kv_bits, S=S, lengths=(3, S, S, 0), seed=S + kv_bits)
-        pos = torch.tensor([2, S, S - 1, 0], dtype=torch.int32, device=DEV)
-        kn, vn = (torch.randn((4, QWEN.n_kv, QWEN.hd), generator=gen(S + i), device=DEV)
+    for name, kv_bits, Hq, Hkv, d, S, lengths, at in APPEND_CHECKS:
+        q, k, v, lens = attn_inputs(kv_bits, Hq=Hq, Hkv=Hkv, d=d, S=S, lengths=lengths,
+                                    seed=S + kv_bits)
+        pos = torch.tensor(at, dtype=torch.int32, device=DEV)
+        kn, vn = (torch.randn((4, Hkv, d), generator=gen(S + i), device=DEV)
                   for i in range(2))
         k_want, v_want = k.clone(), v.clone()
         for cache, new in ((k_want, kn), (v_want, vn)):  # the encode kernel, the row write
@@ -1145,23 +1193,22 @@ def check_attention() -> dict:
                                kv_bits=0)
         got = attn_ops.decode_attention_append(q, kn, vn, k, v, pos, lens, 0, kv_bits=kv_bits)
         assert torch.equal(k, k_want) and torch.equal(v, v_want), \
-            f"append p{kv_bits} S{S}: cache codes differ from encode + the row write"
+            f"{name}: cache codes differ from encode + the row write"
         unfused = attn_ops.decode_attention(q, k_want, v_want, lens, 0, kv_bits=kv_bits)
         assert torch.equal(bits(got), bits(unfused)), \
-            f"append p{kv_bits} S{S}: output differs from the unfused kernel's bits"
+            f"{name}: output differs from the unfused kernel's bits"
         for b in range(4):
             alone = attn_ops.decode_attention(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
                                               v[b:b + 1].contiguous(), lens[b:b + 1], 0,
                                               kv_bits=kv_bits)
             assert torch.equal(bits(alone[0]), bits(unfused[b])), \
-                f"append p{kv_bits} S{S}: row {b} alone differs from row {b} in the batch"
-        row = attention_case_errors(f"append p{kv_bits} S{S}", got, q, k, v, lens, 0, kv_bits,
-                                    QWEN.hd, S)
+                f"{name}: row {b} alone differs from row {b} in the batch"
+        row = attention_case_errors(name, got, q, k, v, lens, 0, kv_bits, d, S)
         if S == 80:
             assert row["bf16_p_err"] > row["limit"], \
-                f"append p{kv_bits} S{S}: a bf16 P holds the contract's limit ({row})"
+                f"{name}: a bf16 P holds the contract's limit ({row})"
         rows.append(row)
-        appended.append(f"p{kv_bits} S{S}")
+        appended.append(name)
         del q, k, v, k_want, v_want
     torch.cuda.empty_cache()
     DETAILS["attention_checks"] = rows
@@ -3383,6 +3430,301 @@ def run_moe_paged(model, params, recorded) -> dict:
             "wall_s": wall, "launches": launches}
 
 
+# ------------------------------------------------------- the whisper path ----
+# (imported inside the functions, as the moe section's: kernel_timings.py
+# imports this module with packages that have no whisper family)
+
+WHISPER = "whisper-medium"
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN = 4, 32, 32
+
+
+def whisper_gemm_launches(cfg, steps: int) -> dict:
+    """The GEMM, attention and encode launches of a static whisper run of
+    ``steps`` decode steps (the teacher-forced prompt's and the greedy
+    ones): frame_proj and 6 linears an encoder layer, then 2 cross k/v
+    linears a decoder layer, at B * T rows (the large-M route), the cross
+    K/V's 2 encodes a layer; a decode step's 8 linears a layer (self q/k/v/o,
+    cross q/o, up, down) at 4 rows on the decode tile and 2 attention
+    launches a layer (the self append, the cross read). The logits are the
+    tied table's ``torch.matmul``."""
+    return {"posit_gemm_large_tc": 1 + 6 * cfg.enc_layers + 2 * cfg.n_layers,
+            "posit_encode": 2 * cfg.n_layers,
+            "posit_gemm": steps * 8 * cfg.n_layers,
+            "posit_attention": steps * 2 * cfg.n_layers}
+
+
+def whisper_inputs(cfg, seed: int = 0) -> tuple:
+    """A static batch's prompts and frames, drawn as ``serve_static`` draws
+    them: (WHISPER_BATCH, WHISPER_PROMPT) tokens, then (B, T, D) frames."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (WHISPER_BATCH, WHISPER_PROMPT))
+    frames = rng.normal(0, 1, (WHISPER_BATCH, cfg.enc_frames, cfg.d_model)).astype(np.float32)
+    return tokens, torch.from_numpy(frames)
+
+
+def check_small_whisper(policy=P8_SERVE, bound: float = 0.05, prompt_len: int = 8,
+                        greedy: int = 4) -> dict:
+    """The reduced whisper-medium (2 + 2 layers, 24 frames, 4 heads over 2
+    K/V heads, head_dim 32) on the card against the same model on the CPU,
+    the same seed-made weights and frames: ``init_cache`` (the encoder and
+    the cross K/V) then ``prompt_len`` teacher-forced and ``greedy`` greedy
+    decode steps, logits within ``bound`` (P8_SERVE's, as phase 5's reduced
+    models) and the same greedy token wherever the CPU's top-2 margin
+    exceeds twice the bound; the cross codes' distance reported."""
+    from repro_torch.models.registry import build_model as build
+
+    cfg = get_arch(WHISPER).reduced()
+    cpu_model, gpu_model = build(cfg, device="cpu"), build(cfg, device="cuda")
+    params_cpu = cpu_model.init(0, policy)
+    params_gpu = _to(params_cpu, DEV)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt_len)).astype(np.int32))
+    frames = torch.from_numpy(rng.normal(0, 1, (2, cfg.enc_frames, cfg.d_model))
+                              .astype(np.float32))
+    S_max = prompt_len + greedy
+    cc = cpu_model.init_cache(params_cpu, {"frames": frames}, policy, S_max)
+    before = dict(kernels.LAUNCHES)
+    cg = gpu_model.init_cache(params_gpu, {"frames": frames}, policy, S_max)
+    # the encoder's and the cross K/V's launches (48 rows: the mid-M kernel)
+    enc_launches = {k: kernels.LAUNCHES[k] - before[k] for k in before
+                    if kernels.LAUNCHES[k] != before[k]}
+    assert enc_launches.get("posit_encode") == 2 * cfg.n_layers, enc_launches
+    d = (cg["cross"]["k"].cpu().to(torch.int32) - cc["cross"]["k"].to(torch.int32)) & 255
+    code_dist = torch.minimum(d, 256 - d)
+    worst, agree, clear, tok = 0.0, 0, 0, None
+    for step in range(prompt_len + greedy):
+        t = toks[:, step] if step < prompt_len else tok
+        lc, cc = cpu_model.decode_step(params_cpu, t, cc, policy)
+        lg, cg = gpu_model.decode_step(params_gpu, t.to(DEV), cg, policy)
+        err = float((lg.cpu() - lc).abs().max())
+        worst = max(worst, err)
+        assert torch.isfinite(lg).all() and err <= bound, f"reduced whisper: logits off by {err}"
+        if step >= prompt_len - 1:
+            top2 = torch.topk(lc, 2, dim=-1).values
+            margin_clear = (top2[:, 0] - top2[:, 1]) > 2 * bound
+            same = lg.cpu().argmax(-1) == lc.argmax(-1)
+            assert bool(same[margin_clear].all()), "whisper: greedy tokens differ on a clear step"
+            agree += int(same.sum())
+            clear += int(margin_clear.sum())
+        tok = lc.argmax(-1).to(torch.int32)
+    assert torch.equal(cg["lens"].cpu(), cc["lens"]) and torch.equal(cg["self"]["len"].cpu(),
+                                                                     cc["self"]["len"])
+    return {"arch": cfg.name, "policy": policy.describe(), "prompt": [2, prompt_len],
+            "greedy_steps": greedy, "max_logit_err": worst, "bound": bound,
+            "greedy_agree": agree, "margin_clear": clear, "init_cache_launches": enc_launches,
+            "cross_k_max_code_distance": int(code_dist.max()),
+            "cross_k_codes_differing": int((code_dist > 0).sum()),
+            "cross_k_codes": code_dist.numel()}
+
+
+def run_whisper_path() -> tuple[dict, dict]:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d 1,024, 16 heads over 16 K/V heads, head_dim 64, d_ff 4,096,
+    vocab 51,865, 1,500 frames), random weights from seed 0, P8_SERVE,
+    through ``serve_static``: a batch of 4, the encoder over seeded frames,
+    a 32-token prompt teacher-forced through the captured decode step, then
+    32 greedy tokens; every launch counted exactly
+    (``whisper_gemm_launches``)."""
+    from repro_torch.launch.serve import serve_static
+
+    cfg = get_arch(WHISPER)
+    events = []
+    kernels.reset_launches()
+    report = serve_static(WHISPER, policy="p8-serve", batch=WHISPER_BATCH,
+                          prompt_len=WHISPER_PROMPT, gen=WHISPER_GEN, seed=0, device="cuda",
+                          emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert report["mode"] == "static" and report["nonfinite_logit_rows"] == 0, report
+    assert report["kv_nar_codes"] == 0, "NaR codes in the whisper K/V cache"
+    assert len(report["sample_tokens"]) == 8
+    # the run's own launches (the report's: after the weights' quantization,
+    # before the cache's health read), exactly as counted
+    run = report["kernel_launches"]
+    want = whisper_gemm_launches(cfg, WHISPER_PROMPT + WHISPER_GEN - 1)
+    for k, v in want.items():
+        assert run[k] == v, f"whisper path: {run[k]} {k} launches, {v} expected"
+    others = {k: v for k, v in run.items() if v and k not in want}
+    assert not others, f"whisper path: launches of other kernels {others}"
+    DETAILS["whisper_serve_events"] = events
+    return report, launches
+
+
+@contextlib.contextmanager
+def recorded_binds(seen: list, steps: dict, *, eager: bool = False):
+    """Static mode's ``serve.bind_step`` replaced, inside the block, by the
+    shipped one (or, ``eager``, by the step itself, run op by op) with every
+    call's logits cloned into ``seen``; the bound step and its arguments
+    kept in ``steps``."""
+    from repro_torch.launch import serve as serve_mod
+
+    shipped = serve_mod.bind_step
+
+    def rebind(decode, args, state, device):
+        step = decode if eager else shipped(decode, args, state, device)
+        steps.update(step=step, args=args)
+
+        def call(*a):
+            out = step(*a)
+            seen.append(out[0].clone())
+            return out
+        return call
+
+    serve_mod.bind_step = rebind
+    try:
+        yield
+    finally:
+        serve_mod.bind_step = shipped
+
+
+def whisper_graph_vs_eager(model, params) -> dict:
+    """The static whisper batch (``whisper_inputs``) generated twice on one
+    set of params: the decode step captured (``bind_step``, as served) and
+    run eagerly op by op. Every step's logits (the prompt's 32 and the
+    greedy ones) bit for bit, the tokens, both caches (self and cross K/V,
+    the lengths, ``lens``, ``pos``) bit for bit, the launch counts equal.
+    Then the captured step's time: ``profile_steps`` steps timed on the
+    host clock and again under torch.profiler (device time and idle share,
+    kernels by name), and the encoder's and the cross K/V's time."""
+    from repro_torch.launch.serve import generate_static
+    from repro_torch.models import encdec
+
+    cfg = model.cfg
+    tokens, frames = whisper_inputs(cfg)
+    runs = {}
+    for name in ("graph", "eager"):
+        seen, steps = [], {}
+        kernels.reset_launches()
+        with recorded_binds(seen, steps, eager=name == "eager"):
+            run = generate_static(model, params, P8_SERVE, tokens, WHISPER_GEN, frames=frames)
+        torch.cuda.synchronize()
+        runs[name] = (run, seen, dict(kernels.LAUNCHES), steps)
+    (g, g_seen, g_launch, bound), (e, e_seen, e_launch, _) = runs["graph"], runs["eager"]
+    g_step = bound["step"]
+    assert type(g_step).__name__ == "CapturedStep", "the whisper step was not captured"
+    assert_bit_identical(g_seen, e_seen, "whisper: graph against eager")
+    assert torch.equal(g["tokens"], e["tokens"]), "whisper: graph and eager tokens differ"
+    for c in ("self", "cross"):
+        for kv in ("k", "v", "len"):
+            assert torch.equal(g["cache"][c][kv], e["cache"][c][kv]), f"whisper {c} {kv}"
+    for k in ("lens", "pos"):
+        assert torch.equal(g["cache"][k], e["cache"][k]), f"whisper {k}"
+    assert g_launch == e_launch, (g_launch, e_launch)
+    _, tok, cache = bound["args"]     # the captured step's token row and cache
+    n_compared = len(g_seen)
+    del runs, g_seen, e_seen
+    torch.cuda.empty_cache()
+
+    # the captured step, as the static loop calls it: the token row written,
+    # one replay, the greedy token taken (the replays past S_max write no row
+    # and attend over S_max positions: a full step's work)
+    def loop(n):
+        for _ in range(n):
+            tok.copy_(g["tokens"][:, -1])
+            logits, _ = g_step(params, tok, cache)
+            torch.argmax(logits, dim=-1)
+
+    from torch.profiler import ProfilerActivity
+
+    n = 8
+    loop(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop(n)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / n * 1e3
+    seen = {}
+
+    def window():
+        seen["before"] = dict(kernels.LAUNCHES)   # a lost window is run again
+        loop(n)
+
+    _, dev, _ = whole_window(window, ProfilerActivity.CPU, ProfilerActivity.CUDA)
+    before = seen["before"]
+    per_step = {k: (kernels.LAUNCHES[k] - before[k]) / n for k in before
+                if kernels.LAUNCHES[k] != before[k]}
+    by_name: dict = {}
+    for ev in dev:
+        us, c = by_name.get(kernel_name(ev.name), (0.0, 0))
+        by_name[kernel_name(ev.name)] = (us + ev.device_time_total, c + 1)
+    busy_us = sum(us for us, _ in by_name.values()) / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the posit GEMM's kernels (not the tied logits' cuBLAS call) and attention's
+    gemm_re = re.compile(r"^(tc_gemm_kernel|gemv_kernel|gemm_kernel|mid_gemm_kernel)<")
+    group_ms = {"gemm": sum(us for k, (us, _) in by_name.items() if gemm_re.match(k)) / n / 1e3,
+                "attention": sum(us for k, (us, _) in by_name.items()
+                                 if k.startswith("attn_kernel")) / n / 1e3}
+    frames_dev = frames.to(DEV)
+    encoder_ms = event_ms(lambda: encdec.encode(params, frames_dev, cfg, P8_SERVE))
+    cache_ms = event_ms(lambda: encdec.init_dec_cache(params, frames_dev, cfg, P8_SERVE,
+                                                      WHISPER_PROMPT + WHISPER_GEN))
+    out = {"decode_steps_compared": n_compared, "bit_identical": True, "launches_equal": True,
+           "tokens": [WHISPER_BATCH, WHISPER_GEN], "captured": True,
+           "graph": {"prefill_s": g["prefill_s"], "compile_s": g["compile_s"],
+                     "decode_tok_per_s": WHISPER_BATCH * g["timed_steps"] / g["decode_s"]},
+           "eager": {"prefill_s": e["prefill_s"],
+                     "decode_tok_per_s": WHISPER_BATCH * e["timed_steps"] / e["decode_s"]},
+           "step_ms": step_ms, "device_busy_ms_per_step": busy_us / 1e3,
+           "device_idle_share": max(0.0, 1 - busy_us / (step_ms * 1e3)),
+           "decode_tok_per_s": WHISPER_BATCH / step_ms * 1e3,
+           "launches_per_step": per_step,
+           "kernels_per_step": sum(c for _, c in by_name.values()) / n,
+           "gemm_ms_per_step": group_ms["gemm"], "attention_ms_per_step": group_ms["attention"],
+           "encoder_ms": encoder_ms, "init_dec_cache_ms": cache_ms,
+           "top": [{"name": k[:90], "device_us_per_step": us / n, "calls_per_step": c / n}
+                   for k, (us, c) in top[:12]]}
+    assert per_step.get("posit_gemm") == 8 * cfg.n_layers, per_step
+    assert per_step.get("posit_attention") == 2 * cfg.n_layers, per_step
+    assert per_step.get("posit_encode", 0) == 0, per_step
+    return out
+
+
+def whisper_timings() -> list:
+    """Phase 6's rows of the whisper path's new shapes, beside the bound and
+    a PyTorch call: the cross read (attention's no-append mode, 4 rows of
+    16 q-heads over 16 K/V heads, d 64, all 1,500 encoder positions, p8,
+    read cold) against SDPA on the decoded f32 cache, and the encoder's up
+    projection (6,000 x 1,024 x 4,096, p8 B, bias and gelu fused, the
+    wgmma route) against torch.matmul bf16 on the decoded weight (CUDA
+    events, as the large-M rows); each with its plain version's time."""
+    cfg = get_arch(WHISPER)
+    rows = []
+    T = cfg.enc_frames
+    lengths = (T,) * WHISPER_BATCH
+    q, k, v, lens = attn_inputs(8, B=WHISPER_BATCH, Hq=cfg.n_heads, Hkv=cfg.n_kv, d=cfg.hd,
+                                S=T, lengths=lengths, seed=21)
+    live = sum(lengths)
+    nbytes = 2 * live * cfg.n_kv * cfg.hd + 2 * q.numel() * 4 + lens.numel() * 4
+    b_ms, by = bound_ms(nbytes, 4.0 * cfg.n_heads * cfg.hd * live, "f32")
+    ms, n_rot = _cold_ms(lambda kc, vc: attn_ops.decode_attention(q, kc, vc, lens, 0, kv_bits=8),
+                         (k, v))
+    kd, vd = (codec_ops.decode(t, 0, nbits=8) for t in (k, v))
+    rows.append({"case": "whisper cross read B4 16/16 d64 S1500 p8", "ms": ms, "bound_ms": b_ms,
+                 "bound_by": by, "bytes": nbytes, "rotated_caches": n_rot,
+                 "plain_ms": time_ms(lambda: posit_decode_attention_ref(q, k, v, lens, 0,
+                                                                        kv_bits=8),
+                                     windows=3, calls=2),
+                 "library_ms": sdpa_ms(q, kd, vd, lens)})
+    del q, k, v, kd, vd
+    M, K, N = WHISPER_BATCH * T, cfg.d_model, cfg.d_ff
+    a, b, bi, _ = make_gemm_inputs(M, K, N, P8_0, torch.float32, True, False, seed=22)
+    kw = dict(es=(0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32, activation="gelu",
+              compute_dtype=torch.bfloat16)
+    ms = event_ms(lambda: posit_gemm(a, b, (0, 0, 0), a_fmt=F32, b_fmt=P8_0, out_fmt=F32,
+                                     bias=bi, activation="gelu", compute_dtype=torch.bfloat16))
+    wdec = codec_ops.decode(b, 0, nbits=8, out_dtype=torch.bfloat16)
+    a16 = a.to(torch.bfloat16)
+    nbytes = a.numel() * 4 + b.numel() + N * 4 + M * N * 4
+    b_ms, by = bound_ms(nbytes, 2.0 * M * K * N, "bf16")
+    rows.append({"case": "whisper encoder up M6000 1024x4096 p8 bias gelu", "ms": ms,
+                 "bound_ms": b_ms, "bound_by": by, "bytes": nbytes,
+                 "plain_ms": event_ms(lambda: gemm_plain(a, b, bi, None, kw), calls=2),
+                 "library_ms": event_ms(lambda: torch.matmul(a16, wdec))})
+    del a, b, bi, wdec, a16
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3432,6 +3774,7 @@ def main() -> int:
     log("reduced_model_olmoe", **check_small_model(olmoe))
     log("reduced_model_olmoe_" + MIXED, **check_small_model(olmoe, mixed_policy))
     log("reduced_model_granite", **check_small_model(get_arch(GRANITE)))
+    log("reduced_model_whisper", **check_small_whisper())
 
     keys = ("arch", "requests", "tokens", "decode_tok_per_s", "p50_token_ms", "p95_token_ms",
             "p50_ttft_ms", "decode_steps", "setup_s", "makespan_s", "kv_bytes_per_token",
@@ -3561,6 +3904,24 @@ def main() -> int:
     del moe_model, moe_params, moe_recorded
     torch.cuda.empty_cache()
     DETAILS["moe_decode_profile"] = moe_prof
+    # the whisper path: static serving through the entry point, then graph
+    # against eager and the captured step's profile on one set of params
+    t_whisper = time.perf_counter()
+    w_report, w_launches = run_whisper_path()
+    log("whisper_path", seconds=time.perf_counter() - t_whisper, launches=w_launches,
+        **{k: w_report[k] for k in ("arch", "batch", "prompt_len", "gen", "decode_tok_per_s",
+                                    "decode_steps", "compile_s", "prefill_s", "setup_s",
+                                    "sample_tokens", "kv_cache_bytes", "kv_absmax",
+                                    "weight_bytes_policy", "weight_bytes_f32")})
+    DETAILS["whisper_serve_report"] = w_report
+    torch.cuda.empty_cache()
+    w_model = build_model(get_arch(WHISPER))
+    w_prof = whisper_graph_vs_eager(w_model, w_model.init(0, P8_SERVE))
+    del w_model
+    torch.cuda.empty_cache()
+    log("whisper_profile", **w_prof)
+    DETAILS["whisper_profile"] = w_prof
+    log("whisper_phase", seconds=time.perf_counter() - t_whisper)
     # every profiled path's decode step is one captured graph, bit for bit its
     # eager twin (asserted in profile_decode)
     for path, p in (("p8_serve", prof), ("long", l_prof), ("mixed", m_prof),
@@ -3568,6 +3929,9 @@ def main() -> int:
                     ("moe", moe_prof)):
         log("graph_vs_eager", **graph_line(path, p))
         assert p["captured"], f"the {path} engine did not capture its decode step"
+    log("graph_vs_eager", path="whisper", **{k: w_prof[k] for k in (
+        "captured", "decode_steps_compared", "bit_identical", "launches_equal", "graph",
+        "eager", "step_ms", "device_busy_ms_per_step", "device_idle_share")})
     # phase 5t after the profiles: its 40 GB of allocations and its own
     # profiled steps come after every decode profile's window
     log("train_reduced", **check_train_reduced())
@@ -3597,7 +3961,7 @@ def main() -> int:
                                 "mixed_f32": f_launches, "quire": q_launches,
                                 "long": l_launches, "softmax": sm_launches,
                                 "paged": p_launches, "paged_serve": ps_launches,
-                                "moe": moe_launches,
+                                "moe": moe_launches, "whisper": w_launches,
                                 **{"train_" + k: v["launches_run"]
                                    for k, v in train_lines.items()}}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
@@ -3610,6 +3974,8 @@ def main() -> int:
                     posit_gemm_large_fma=train_lines["p16-train"]["launches_run"]
                     ["posit_gemm_large_fma"])
     rows = time_kernels(launches, errs)
+    DETAILS["whisper_timings"] = whisper_timings()
+    log("whisper_timings", rows=DETAILS["whisper_timings"])
     DETAILS["train_timings"] = train_timings()
     log("train_timings", **DETAILS["train_timings"])
     log("attention_paged_timings", rows=DETAILS["paged_attention_timings"])

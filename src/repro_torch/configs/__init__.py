@@ -1,7 +1,9 @@
-"""Architecture registry of the port: the dense- and moe-family configs.
+"""Architecture registry of the port: the dense- and moe-family configs and
+whisper-medium (the encoder-decoder family, served in ``serve.py``'s static
+mode).
 
-The other families of the reference (gemma3, zamba, xlstm, whisper, vlm)
-are not ported yet.
+The other families of the reference (gemma3, zamba, xlstm, vlm) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import importlib
 from repro_torch.configs.base import ModelCfg
 
 ARCH_IDS = ("granite-moe-3b-a800m", "olmoe-1b-7b", "phi3-mini-3.8b", "qwen2.5-14b",
-            "yi-34b")
+            "whisper-medium", "yi-34b")
 
 
 def get_arch(name: str) -> ModelCfg:

@@ -7,7 +7,10 @@ Codes stay codes and floats stay floats, with no rounding on the way: a
 stacked ``w_packed`` of packed p8 lanes, (L, ceil(K/2), N) uint16, becomes
 each layer's (ceil(K/2), N) uint16 bit for bit. The stacked ``blocks`` axis
 becomes a list of per-layer dicts; a moe layer's stacked expert leaves,
-(L, E, D, F) float or codes, become its (E, D, F).
+(L, E, D, F) float or codes, become its (E, D, F). The whisper tree's
+``enc_blocks`` and ``dec_blocks`` become per-layer lists the same way;
+``frame_proj``, ``enc_ln``, ``embed``, ``pos_embed`` and ``dec_ln`` are
+carried across as they are.
 
 ``opt_state_from_jax`` does the same for the reference's AdamW state (float
 or posit-coded moments, the error-feedback residuals, the step count), and
@@ -31,19 +34,32 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
+# the stacked layer trees of each family, with their depth
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def _stacked_depths(cfg: ModelCfg) -> dict:
+    if cfg.family in ("dense", "moe"):
+        return {"blocks": cfg.n_layers}
+    if cfg.family == "whisper":
+        return {"enc_blocks": cfg.enc_layers, "dec_blocks": cfg.n_layers}
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+
+
 def params_from_jax(tree: dict, cfg: ModelCfg, device="cuda") -> dict:
     """The port's parameters for the reference tree ``tree`` of model ``cfg``."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    depths = _stacked_depths(cfg)
     dev = resolve_device(device)
-    blocks = tree["blocks"]
-    depth = {int(np.shape(a)[0]) for a in tree_leaves(blocks)}
-    if depth != {cfg.n_layers}:
-        raise ValueError(f"stacked blocks have depth {sorted(depth)}, "
-                         f"config {cfg.name} has {cfg.n_layers} layers")
-    out = {k: tree_map(lambda a: _tensor(a, dev), v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), blocks)
-                     for i in range(cfg.n_layers)]
+    out = {k: tree_map(lambda a: _tensor(a, dev), v) for k, v in tree.items()
+           if k not in depths}
+    for key, n in depths.items():
+        blocks = tree[key]
+        depth = {int(np.shape(a)[0]) for a in tree_leaves(blocks)}
+        if depth != {n}:
+            raise ValueError(f"stacked {key} have depth {sorted(depth)}, "
+                             f"config {cfg.name} has {n} layers")
+        out[key] = [tree_map(lambda a, i=i: _tensor(np.asarray(a)[i], dev), blocks)
+                    for i in range(n)]
     return out
 
 
@@ -58,15 +74,14 @@ def opt_state_from_jax(state: dict, cfg: ModelCfg, device="cuda") -> dict:
 
 def tree_to_jax(tree: dict) -> dict:
     """A port tree (parameters, gradients or ``opt["mu"]``) as the reference
-    lays it out: numpy leaves, the per-layer ``blocks`` list stacked on a
-    leading axis. Codes stay codes."""
+    lays it out: numpy leaves, each per-layer list (``blocks``,
+    ``enc_blocks``, ``dec_blocks``) stacked on a leading axis. Codes stay
+    codes."""
     def numpy(t):
         return t.detach().cpu().numpy()
 
-    out = {k: tree_map(numpy, v) for k, v in tree.items() if k != "blocks"}
-    if "blocks" in tree:
-        out["blocks"] = _stack([tree_map(numpy, b) for b in tree["blocks"]])
-    return out
+    return {k: _stack([tree_map(numpy, b) for b in v]) if k in STACKED else tree_map(numpy, v)
+            for k, v in tree.items()}
 
 
 def _stack(layers: list):

@@ -193,6 +193,13 @@ class CapturedStep:
         return self.out
 
 
+def require_prefill(model) -> None:
+    """The engines admit a request by prefilling it: a family without a
+    prefill entry point (whisper) is refused, with the reference's words."""
+    if model.prefill is None:
+        raise ValueError(f"family {model.cfg.family!r} has no prefill entry point")
+
+
 def _sample(logits: torch.Tensor, gen: torch.Generator, temperature: float,
             top_k: int) -> torch.Tensor:
     """(B, V) logits -> (B,) tokens. temperature == 0 is greedy argmax."""
@@ -218,6 +225,7 @@ class ContinuousBatchingEngine:
     def __init__(self, model, params, policy, *, max_slots: int, S_max: int,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
                  top_k: int = 0, seed: int = 0):
+        require_prefill(model)
         self.model, self.params, self.policy = model, params, policy
         self.device = model.device
         self.max_slots, self.S_max = max_slots, S_max

@@ -38,7 +38,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core.paged_kv import PagedKVCache, PageGeometry, PoolExhausted
-from repro_torch.launch.engine import ContinuousBatchingEngine, Request, _nar_code
+from repro_torch.launch.engine import (ContinuousBatchingEngine, Request, _nar_code,
+                                       require_prefill)
 from repro_torch.models.transformer import attn_cfg
 
 __all__ = ["PagedContinuousBatchingEngine"]
@@ -71,6 +72,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
 
     def __init__(self, model, params, policy, *, max_slots: int, S_max: int,
                  page_bytes: int = 2048, n_blocks: Optional[int] = None, **kw):
+        require_prefill(model)
         if model.decode_step_paged is None or model.init_paged_cache is None:
             raise ValueError(f"family {model.cfg.family!r} has no paged decode path")
         fmt = policy.kv_cache

@@ -1,8 +1,23 @@
-"""Serving CLI: continuous batching over the ragged posit KV cache.
+"""Serving CLI: a static lockstep batch, or continuous batching over the
+ragged posit KV cache.
 
+    # static batch: prefill (dense, moe) or the encoder and a teacher-forced
+    # decoder prompt (whisper), then greedy decode steps in lockstep
+    python -m repro_torch.launch.serve --arch whisper-medium --batch 4 \
+        --prompt-len 32 --gen 32 --policy p8-serve
+
+    # continuous batching (launch/engine.py)
     python -m repro_torch.launch.serve --arch qwen2.5-14b --continuous \
         --max-slots 4 --requests 8 --prompt-len 64 --gen 16 --policy p8-serve \
         --precision-policy attn-p16-mlp-p8
+
+Static mode (the default, as in the reference) serves ``--batch`` prompts
+drawn from ``--seed``: the dense and moe families prefill them in one
+batch; whisper runs its encoder once over seeded frames (B, 1,500, d) and
+feeds the prompt through ``decode_step`` token by token. The decode step
+replays one captured CUDA graph (``launch/engine.py`` ``CapturedStep``);
+its first call, the capture, is timed as ``compile_s`` apart from
+``decode_tok_per_s``. Decoding is greedy.
 
 ``--precision-policy`` schedules per-layer weight formats over the
 ``--policy`` base (which keeps every other role: KV cache, compute dtype):
@@ -10,23 +25,26 @@ a preset name, a ``pattern=fmt[@es][:packed],...`` spec, or
 ``@artifact.json`` (core/policy.py). Weights are random, drawn from
 ``--seed`` on the device, and quantized to each layer's format as they are
 drawn (packed p8 lanes where the layer's rule packs). Every stdout line is one
-JSON object with a ``"kind"`` key: one ``serve/prefill`` line per request
-(its prefill time), then one ``serve/report`` (tokens/s, per-token latency
-percentiles, KV bytes per token, linear-weight bytes under the policy and
-in f32, kernel launches during the run, and the KV cache's decoded health). Runs on the CUDA device unless ``--device cpu``.
+JSON object with a ``"kind"`` key: ``serve/prefill`` (static mode: one line,
+the batch's prefill time; continuous: one a request), then one
+``serve/report`` (tokens/s, per-token latency percentiles in continuous
+mode, KV bytes per token, linear-weight bytes under the policy and in f32,
+kernel launches during the run, and the KV cache's decoded health). Runs on
+the CUDA device unless ``--device cpu``.
 
 ``--paged`` serves through the paged prefix-sharing engine
-(``launch/paged_engine.py``): ``--page-bytes`` is a layer's K+V bytes of one
-page (the default 2,048 is one token a page at qwen2.5-14b's full width at
-p8; 32,768 is 16), ``--n-blocks`` the pool's size (default: the slot grid's
-byte budget); the report then carries ``prefix_cache``. Only the continuous
-mode is ported; the reference's static mode and observability/fault-tolerance
-flags are not.
+(``launch/paged_engine.py``, with ``--continuous``): ``--page-bytes`` is a
+layer's K+V bytes of one page (the default 2,048 is one token a page at
+qwen2.5-14b's full width at p8; 32,768 is 16), ``--n-blocks`` the pool's
+size (default: the slot grid's byte budget); the report then carries
+``prefix_cache``. The reference's observability and fault-tolerance flags
+are not ported.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 from typing import Callable, Optional
 
@@ -38,7 +56,8 @@ from repro_torch.configs import get_arch
 from repro_torch.core.pcsr import TransPolicy, parse_policy
 from repro_torch.core.policy import get_precision_policy
 from repro_torch.kernels.posit_codec import ops as codec_ops
-from repro_torch.launch.engine import ContinuousBatchingEngine, Request, poisson_requests
+from repro_torch.launch.engine import (CapturedStep, ContinuousBatchingEngine, Request,
+                                       poisson_requests)
 from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
 from repro_torch.models.layers import policy_weight_bytes
 from repro_torch.models.registry import build_model
@@ -48,9 +67,34 @@ def percentile_ms(values, q: float) -> float:
     return float(np.percentile(np.asarray(values, np.float64), q) * 1e3) if values else 0.0
 
 
+# the cache containers whose "k"/"v" leaves are K/V arrays (the reference's
+# launch/engine.py KV_CONTAINERS, less the families the port lacks)
+KV_CONTAINERS = ("kv", "self", "cross")
+
+
+def _leaves(tree, keys=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, keys + (k,))
+    elif isinstance(tree, torch.Tensor):
+        yield keys, tree
+
+
+def _kv_arrays(cache: dict) -> list:
+    """The K/V arrays of a cache: leaves named ``k``/``v`` inside a KV
+    container (not the lengths, not the block table)."""
+    return [t for keys, t in _leaves(cache)
+            if keys and keys[-1] in ("k", "v") and any(k in KV_CONTAINERS for k in keys[:-1])]
+
+
+def cache_bytes(cache: dict) -> int:
+    """Bytes of every tensor in the cache (bookkeeping included)."""
+    return sum(t.numel() * t.element_size() for _, t in _leaves(cache))
+
+
 def kv_cache_bytes(cache: dict) -> int:
     """Bytes of the K/V arrays only (no length bookkeeping)."""
-    return sum(t.numel() * t.element_size() for t in (cache["kv"]["k"], cache["kv"]["v"]))
+    return sum(t.numel() * t.element_size() for t in _kv_arrays(cache))
 
 
 def kv_health(cache: dict, policy: TransPolicy) -> dict:
@@ -61,7 +105,7 @@ def kv_health(cache: dict, policy: TransPolicy) -> dict:
         return {}
     nar = 0
     absmax = 0.0
-    for codes in (cache["kv"]["k"], cache["kv"]["v"]):
+    for codes in _kv_arrays(cache):
         vals = codec_ops.decode(codes, fmt.es, nbits=fmt.nbits)
         nar += int(torch.isnan(vals).sum())
         absmax = max(absmax, float(torch.nan_to_num(vals, nan=0.0).abs().max()))
@@ -90,6 +134,8 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
     cfg = cfg.reduced() if reduced else cfg
     pol = build_policy(policy, precision_policy)
     model = build_model(cfg, device=device)
+    if model.prefill is None:
+        sys.exit(f"--continuous needs a prefill entry point (family {cfg.family!r} has none)")
     t0 = time.perf_counter()
     params = model.init(seed, pol)
     weight_report = policy_weight_bytes(params, pol)
@@ -163,12 +209,159 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def bind_step(decode: Callable, args: tuple, state: tuple, device: torch.device) -> Callable:
+    """The static mode's decode program ``decode(*args)``: on a CUDA device
+    captured in a CUDA graph over ``args`` (``CapturedStep``; ``state`` the
+    tensors the step advances, put back after the warm-up), on the CPU the
+    step itself, run eagerly."""
+    if device.type != "cuda":
+        return decode
+    return CapturedStep(decode, args, state, torch.cuda.Stream(device))
+
+
+def _advanced(cache: dict) -> tuple:
+    """The tensors a decode step advances: the rows' positions, the step
+    counter and every container's lengths."""
+    return (cache["lens"], cache["pos"]) + tuple(
+        t for keys, t in _leaves(cache) if keys[-1] == "len")
+
+
+def generate_static(model, params, policy, tokens, gen: int, *, frames=None) -> dict:
+    """The reference's static mode on ``model``: ``tokens`` (B, L) prompts in
+    one lockstep batch, ``gen`` greedy tokens each. A family with a prefill
+    entry point prefills the batch; whisper (no prefill) runs
+    ``init_cache`` on ``frames`` (B, T, D), the encoder and the cross K/V,
+    then feeds the prompt through ``decode_step``, teacher-forced. The
+    decode step reads a persistent token row and the cache, and is bound
+    once by ``bind_step`` (captured on the card); its first call is timed
+    as ``compile_s``.
+
+    Returns ``tokens`` (B, gen) int32, ``cache``, ``prefill_s`` (whisper:
+    the encoder, the cross K/V and the prompt's steps but the first),
+    ``compile_s``, ``decode_s`` and ``timed_steps`` (the steps after the
+    first decoded token and the compile, as the reference counts them), and
+    ``nonfinite_logit_rows`` (rows of any step whose logits held NaN/inf)."""
+    dev = model.device
+    tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32).to(dev)
+    B, L = tokens.shape
+    S_max = L + gen
+    tok = torch.zeros((B,), dtype=torch.int32, device=dev)   # the step's token row
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def decode(p, t, cache):
+        return model.decode_step(p, t, cache, policy)
+
+    def run(step, cache, t):
+        tok.copy_(t)
+        logits, cache = step(params, tok, cache)
+        bad.add_((~torch.isfinite(logits)).any(dim=-1).sum())
+        return logits, cache
+
+    step = None
+    t0 = time.perf_counter()
+    if model.prefill is None:
+        cache = model.init_cache(params, {"frames": frames}, policy, S_max)
+        tc = time.perf_counter()
+        step = bind_step(decode, (params, tok, cache), _advanced(cache), dev)
+        logits, cache = run(step, cache, tokens[:, 0])
+        _sync(dev)
+        compile_s = time.perf_counter() - tc
+        for i in range(1, L):
+            logits, cache = run(step, cache, tokens[:, i])
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0 - compile_s
+    else:
+        logits, cache = model.prefill(params, tokens, policy, S_max=S_max)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        bad.add_((~torch.isfinite(logits)).any(dim=-1).sum())
+    out = [torch.argmax(logits, dim=-1).to(torch.int32)]
+    if step is None:
+        tc = time.perf_counter()
+        step = bind_step(decode, (params, tok, cache), _advanced(cache), dev)
+        if gen > 1:
+            logits, cache = run(step, cache, out[-1])
+            out.append(torch.argmax(logits, dim=-1).to(torch.int32))
+        _sync(dev)
+        compile_s = time.perf_counter() - tc
+    timed = max(gen - len(out), 0)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        logits, cache = run(step, cache, out[-1])
+        out.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    _sync(dev)
+    return {"tokens": torch.stack(out[:gen], dim=1), "cache": cache, "prefill_s": prefill_s,
+            "compile_s": compile_s, "decode_s": time.perf_counter() - t0,
+            "timed_steps": timed, "nonfinite_logit_rows": int(bad)}
+
+
+def serve_static(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str] = None,
+                 reduced: bool = False, batch: int = 4, prompt_len: int = 32, gen: int = 16,
+                 seed: int = 0, device="cuda", emit: Callable[[dict], None] = None) -> dict:
+    """Build ``arch`` from ``seed`` and serve one static batch of ``batch``
+    prompts (``generate_static``): the prompts, then whisper's frames (B,
+    enc_frames, d), drawn from ``np.random.default_rng(seed)`` in the
+    reference's order. Emits one ``serve/prefill`` line and returns the
+    report (also emitted)."""
+    emit = emit or (lambda ev: print(json.dumps(ev), flush=True))
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if reduced else cfg
+    pol = build_policy(policy, precision_policy)
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    params = model.init(seed, pol)
+    weight_report = policy_weight_bytes(params, pol)
+    _sync(model.device)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (batch, prompt_len))
+    frames = None
+    if model.prefill is None:
+        frames = torch.from_numpy(
+            rng.normal(0, 1, (batch, cfg.enc_frames, cfg.d_model)).astype(np.float32))
+    before = dict(kernels.LAUNCHES)
+    run = generate_static(model, params, pol, tokens, gen, frames=frames)
+    launches = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    emit({"kind": "serve/prefill", "mode": "static", "batch": batch, "prompt_len": prompt_len,
+          "prefill_s": run["prefill_s"]})
+    cache = run["cache"]
+    kv_b = kv_cache_bytes(cache)
+    report = {
+        "kind": "serve/report",
+        "arch": cfg.name,
+        "policy": pol.describe(),
+        "device": (torch.cuda.get_device_name(model.device)
+                   if model.device.type == "cuda" else "cpu"),
+        "mode": "static",
+        "batch": batch,
+        "prompt_len": prompt_len,
+        "gen": gen,
+        "decode_tok_per_s": batch * run["timed_steps"] / max(run["decode_s"], 1e-9),
+        "decode_steps": run["timed_steps"],
+        "compile_s": run["compile_s"],
+        "prefill_s": run["prefill_s"],
+        "setup_s": setup_s,
+        "sample_tokens": run["tokens"][0, :8].tolist(),
+        "kv_cache_bytes": kv_b,
+        "cache_bytes_total": cache_bytes(cache),
+        "kv_bytes_per_token": kv_b // (batch * (prompt_len + gen)),
+        **weight_report,
+        "kernel_launches": launches,
+        "nonfinite_logit_rows": run["nonfinite_logit_rows"],
+        **kv_health(cache, pol),
+    }
+    emit(report)
+    return report
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true", help="the reduced (CI-sized) config")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="static batch size (and the default --max-slots)")
     ap.add_argument("--continuous", action="store_true",
-                    help="continuous batching (the only ported mode)")
+                    help="continuous batching (launch/engine.py); static mode without it")
     ap.add_argument("--paged", action="store_true",
                     help="paged prefix-sharing KV cache (launch/paged_engine.py; "
                          "rides --continuous)")
@@ -178,7 +371,8 @@ def main(argv=None):
     ap.add_argument("--n-blocks", type=int, default=None,
                     help="KV pool size in blocks (paged mode; default: the slot "
                          "grid's byte budget)")
-    ap.add_argument("--max-slots", type=int, default=4)
+    ap.add_argument("--max-slots", type=int, default=None,
+                    help="decode slots of the continuous engine (default: --batch)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -195,16 +389,17 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.paged and not args.continuous:
+        ap.error("--paged rides the continuous-batching engine; add --continuous")
+    common = dict(policy=args.policy, precision_policy=args.precision_policy,
+                  reduced=args.reduced, prompt_len=args.prompt_len, gen=args.gen,
+                  seed=args.seed, device=args.device)
     if not args.continuous:
-        ap.error("only --continuous serving is ported" + (
-            "; --paged rides the continuous-batching engine: add --continuous"
-            if args.paged else ""))
-    serve(args.arch, policy=args.policy, precision_policy=args.precision_policy,
-          reduced=args.reduced, max_slots=args.max_slots,
-          requests=args.requests, prompt_len=args.prompt_len, gen=args.gen,
+        serve_static(args.arch, batch=args.batch, **common)
+        return
+    serve(args.arch, max_slots=args.max_slots or args.batch, requests=args.requests,
           arrival_rate=args.arrival_rate, temperature=args.temperature, top_k=args.top_k,
-          seed=args.seed, paged=args.paged, page_bytes=args.page_bytes,
-          n_blocks=args.n_blocks, device=args.device)
+          paged=args.paged, page_bytes=args.page_bytes, n_blocks=args.n_blocks, **common)
 
 
 if __name__ == "__main__":

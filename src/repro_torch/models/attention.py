@@ -1,6 +1,8 @@
-"""Attention for the dense decoder: training (full-sequence causal SDPA, no
-cache), prefill (the same, filling the KV cache) and one decode step over a
-posit-coded KV cache.
+"""Attention for the dense decoder and the encoder-decoder: training and
+encoder self-attention (full-sequence SDPA, causal or not, no cache),
+prefill (the same, filling the KV cache) and one decode step over a
+posit-coded KV cache: self-attention, which writes its new K/V row, or
+cross-attention, which reads a prefilled encoder cache as it is.
 
 KV-cache transprecision: when ``policy.kv_cache`` is a posit format the cache
 holds uint8/uint16 codes. Prefill encodes its K/V block on write (the encode
@@ -108,6 +110,11 @@ def init_kv_cache(B: int, S_max: int, cfg: AttnCfg, policy: TransPolicy, *,
             "len": torch.zeros(lead + (B,), dtype=torch.int32, device=device)}
 
 
+def layer_cache(kv: dict, i: int) -> dict:
+    """Layer i's views into a stacked cache (writes land in the stack)."""
+    return {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
+
+
 def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos: int, policy: TransPolicy) -> None:
     """Write the (B, Hkv, s, hd) block ``new`` into ``cache_arr`` at sequence
     offset ``pos``, in place (encoded for a posit cache). A decode step's
@@ -123,10 +130,11 @@ def _store(cache_arr: torch.Tensor, new: torch.Tensor, pos: int, policy: TransPo
 def _self_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPolicy, *,
                     rope=None, residual: Optional[torch.Tensor] = None,
                     path: str = "attn") -> tuple:
-    """Full-sequence causal self-attention without a cache: the q/k/v
-    linears, RoPE at positions 0..S-1 (``rope`` their ``rope_tables``, made
-    here when None), the plain SDPA and wo with ``residual`` fused. Returns
-    (y, k, v), k and v (B, S, Hkv, hd) after RoPE."""
+    """Full-sequence self-attention without a cache, causal as ``cfg`` says:
+    the q/k/v linears, RoPE at positions 0..S-1 where ``cfg.use_rope``
+    (``rope`` their ``rope_tables``, made here when None), the plain SDPA
+    and wo with ``residual`` fused. Returns (y, k, v), k and v (B, S, Hkv,
+    hd) after RoPE."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     q = _split_heads(apply_linear(params["wq"], x, policy, path=f"{path}/wq"), H, hd)
@@ -146,11 +154,11 @@ def apply_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPo
                     rope=None, residual: Optional[torch.Tensor] = None,
                     path: str = "attn") -> torch.Tensor:
     """Training attention (the reference's ``apply_attention_dynwin`` at
-    window 0 and the layer's RoPE base): causal self-attention over the
-    whole sequence, no cache, differentiable. x: (B, S, D); ``rope`` the
-    tables of positions 0..S-1 (shared by every layer; made here when None);
-    ``residual`` fuses into the wo epilogue (the reference adds it after
-    wo: the same f32 sum)."""
+    window 0 and the layer's RoPE base), and the encoder's (``cfg.causal``
+    False, no RoPE): self-attention over the whole sequence, no cache,
+    differentiable. x: (B, S, D); ``rope`` the tables of positions 0..S-1
+    (shared by every layer; made here when None); ``residual`` fuses into
+    the wo epilogue (the reference adds it after wo: the same f32 sum)."""
     return _self_attention(params, cfg, x, policy, rope=rope, residual=residual, path=path)[0]
 
 
@@ -191,26 +199,29 @@ def _decode_attention(params: dict, cfg: AttnCfg, x_t: torch.Tensor, pos: torch.
                       policy: TransPolicy, attend, *, rolling: bool = False, rope=None,
                       residual: Optional[torch.Tensor] = None,
                       path: str = "attn") -> torch.Tensor:
-    """A decode step's attention around its kernel call: the q/k/v linears,
-    RoPE at ``pos`` (``rope`` the step's tables, made here when None), then
-    ``attend(q (B, H, hd), k_new (B, Hkv, hd), v_new, es, kv_bits)``, all
-    float32, for the (B, H, hd) output, and wo with ``residual`` fused."""
+    """A decode step's attention around its kernel call: the q/k/v linears
+    (q alone for cross-attention, whose K/V are the encoder's, already in
+    the cache), RoPE at ``pos`` (``rope`` the step's tables, made here when
+    None), then ``attend(q (B, H, hd), k_new (B, Hkv, hd), v_new, es,
+    kv_bits)``, all float32 (k_new and v_new None for cross-attention), for
+    the (B, H, hd) output, and wo with ``residual`` fused."""
     B = x_t.shape[0]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     if resolve_attn_impl(policy, cfg, rolling=rolling) != "kernel":
         raise NotImplementedError("only the decode-attention kernel path is ported")
     q = _split_heads(apply_linear(params["wq"], x_t, policy, path=f"{path}/wq"), H, hd)
-    kn = _split_heads(apply_linear(params["wk"], x_t, policy, path=f"{path}/wk"), Hkv, hd)
-    vn = _split_heads(apply_linear(params["wv"], x_t, policy, path=f"{path}/wv"), Hkv, hd)
-    if cfg.use_rope:
-        if rope is None:
-            rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
-        q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
+    kn = vn = None
+    if not cfg.is_cross:
+        kn = _split_heads(apply_linear(params["wk"], x_t, policy, path=f"{path}/wk"), Hkv, hd)
+        vn = _split_heads(apply_linear(params["wv"], x_t, policy, path=f"{path}/wv"), Hkv, hd)
+        if cfg.use_rope:
+            if rope is None:
+                rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
+            q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
+        kn, vn = (t.reshape(B, Hkv, hd).to(torch.float32).contiguous() for t in (kn, vn))
     fmt = policy.kv_cache
     es, kv_bits = (fmt.es, fmt.nbits) if fmt is not None else (0, 0)
-    out = attend(q.reshape(B, H, hd).to(torch.float32).contiguous(),
-                 kn.reshape(B, Hkv, hd).to(torch.float32).contiguous(),
-                 vn.reshape(B, Hkv, hd).to(torch.float32).contiguous(), es, kv_bits)
+    out = attend(q.reshape(B, H, hd).to(torch.float32).contiguous(), kn, vn, es, kv_bits)
     return apply_linear(params["wo"], out.reshape(B, 1, H * hd).to(x_t.dtype), policy,
                         residual=residual, path=f"{path}/wo")
 
@@ -225,12 +236,18 @@ def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: 
     modulo the buffer size). Counts the new K/V row in ``cache["len"]``
     (clamped to the buffer size, which is all a rolling cache's validity
     needs), then writes it in place and attends in one call of the
-    decode-attention kernel (``decode_attention_append``). ``rope`` is the
-    step's ``rope_tables`` of ``pos`` (shared by every layer; made here when
+    decode-attention kernel (``decode_attention_append``). Cross-attention
+    (``cfg.is_cross``) reads the prefilled encoder cache instead: no k/v
+    linears, no write, ``cache["len"]`` unchanged, one call of the kernel's
+    no-append mode (``decode_attention``). ``rope`` is the step's
+    ``rope_tables`` of ``pos`` (shared by every layer; made here when
     None); ``residual`` fuses into the wo epilogue; ``path`` names the
     projections for a per-layer policy. Returns (y, cache)."""
 
     def attend(q, kn, vn, es, kv_bits):
+        if cfg.is_cross:
+            return attn_ops.decode_attention(q, cache["k"], cache["v"], cache["len"], es,
+                                             kv_bits=kv_bits)
         # a slot never holds more than S_cache valid positions (recycled engine
         # slots would otherwise grow `len` between eviction and reuse)
         cache["len"].add_(1).clamp_(max=cache["k"].shape[2])

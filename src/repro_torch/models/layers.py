@@ -1,4 +1,5 @@
-"""Parameter init + core layer ops (linear, norm, rotary, MLP, embedding).
+"""Parameter init + core layer ops (linear, norms, rotary and sinusoidal
+positions, MLPs, embedding).
 
 Parameter convention, as in the reference: nested dicts of tensors. Posit-
 stored weights appear as ``{"w_codes": uint8/uint16 (K, N), "b": ...}`` after
@@ -15,6 +16,7 @@ kernel, on CPU tensors its plain version.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -275,6 +277,19 @@ def apply_rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return ((xf * torch.rsqrt(var + eps)) * p["g"]).to(x.dtype)
 
 
+def init_layernorm(d: int, device="cpu") -> dict:
+    return {"g": torch.ones((d,), device=device), "b": torch.zeros((d,), device=device)}
+
+
+def apply_layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32 over the last axis, the population variance, as the
+    reference computes it."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
+
+
 # ----------------------------------------------------------------- rotary -----
 
 def rope_freqs(head_dim: int, base: float = 10000.0, device="cpu") -> torch.Tensor:
@@ -298,6 +313,17 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device="cpu") -> torch.Tensor:
+    """(n, d) f32: sin at the even columns, cos at the odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    step = torch.tensor(-math.log(10000.0), dtype=torch.float32) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device) * step.to(device))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
 # -------------------------------------------------------------------- MLPs ----
 
 def init_swiglu(gen: torch.Generator, d: int, f: int, *, device="cpu", policy=None,
@@ -317,6 +343,23 @@ def apply_swiglu(p: dict, x: torch.Tensor, policy, *,
     g = apply_linear(p["gate"], x, policy, activation="silu", path=f"{path}/gate")
     u = apply_linear(p["up"], x, policy, path=f"{path}/up")
     return apply_linear(p["down"], g * u, policy, residual=residual, path=f"{path}/down")
+
+
+def init_gelu_mlp(gen: torch.Generator, d: int, f: int, *, bias: bool = True, device="cpu",
+                  policy=None, path: str = "mlp") -> dict:
+    kw = dict(device=device, policy=policy)
+    return {
+        "up": init_linear(gen, d, f, bias=bias, path=f"{path}/up", **kw),
+        "down": init_linear(gen, f, d, bias=bias, scale=f ** -0.5, path=f"{path}/down", **kw),
+    }
+
+
+def apply_gelu_mlp(p: dict, x: torch.Tensor, policy, *,
+                   residual: Optional[torch.Tensor] = None, path: str = "mlp") -> torch.Tensor:
+    """gelu (tanh form) fuses into the up projection's epilogue, after its
+    bias; an optional block residual fuses into the down projection."""
+    h = apply_linear(p["up"], x, policy, activation="gelu", path=f"{path}/up")
+    return apply_linear(p["down"], h, policy, residual=residual, path=f"{path}/down")
 
 
 # -------------------------------------------------------------- embeddings ----

@@ -1,5 +1,5 @@
-"""Model registry: one uniform interface over the ported families (dense and
-moe; ``loss`` and ``forward`` train the dense family only).
+"""Model registry: one uniform interface over the ported families (dense,
+moe and whisper; ``loss`` and ``forward`` train the dense family only).
 
   model = build_model(cfg)                 # device="cuda" unless told otherwise
   params = model.init(seed, policy)        # quantized layer by layer under a posit policy
@@ -9,6 +9,11 @@ moe; ``loss`` and ``forward`` train the dense family only).
   logits, cache = model.decode_step(params, tokens_t, cache, policy)
   cache = model.init_paged_cache(B, n_blocks, block_tokens, table_width, policy)
   logits, cache = model.decode_step_paged(params, tokens_t, cache, policy)
+
+The whisper family has no prefill and no paged entry points (``None``), as
+in the reference: ``init_cache(params, {"frames": (B, T, D)}, policy,
+S_max)`` runs the encoder and prefills the cross K/V, and the decoder
+prompt goes through ``decode_step`` token by token.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.core.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,7 +32,8 @@ class Model:
     cfg: ModelCfg
     device: torch.device
     init: Callable            # (seed, policy=None) -> params
-    init_cache: Callable      # (B, S_max, policy) -> cache
+    # (B, S_max, policy) -> cache; whisper: (params, {"frames"}, policy, S_max)
+    init_cache: Callable
     prefill: Callable         # (params, tokens, policy, S_max=None) -> (logits, cache)
     decode_step: Callable     # (params, tokens_t, cache, policy) -> (logits, cache)
     # paged serving: (B, n_blocks, block_tokens, table_width, policy) -> cache
@@ -37,11 +43,20 @@ class Model:
     forward: Callable = None    # (params, batch, policy) -> hidden (B, S, D)
 
 
+def _training_not_ported(family: str) -> Callable:
+    def refuse(*_):
+        raise NotImplementedError(
+            f"training the {family} family is not ported yet: Queue 1 item 5b")
+    return refuse
+
+
 def build_model(cfg: ModelCfg, device="cuda") -> Model:
-    if cfg.family not in transformer.SERVED_FAMILIES:
+    if cfg.family == "whisper":
+        return _build_encdec(cfg, resolve_device(device))
+    if cfg.family not in transformer.DECODER_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet; the port serves "
-            f"{transformer.SERVED_FAMILIES}")
+            f"{transformer.DECODER_FAMILIES} and whisper")
     dev = resolve_device(device)
 
     def init(seed: int, policy=None) -> dict:
@@ -64,4 +79,23 @@ def build_model(cfg: ModelCfg, device="cuda") -> Model:
             p, tok, cache, cfg, pol),
         loss=lambda p, batch, pol: transformer.lm_loss(p, batch, cfg, pol),
         forward=lambda p, batch, pol: transformer.forward(p, batch["tokens"], cfg, pol)[0],
+    )
+
+
+def _build_encdec(cfg: ModelCfg, dev: torch.device) -> Model:
+    def init(seed: int, policy=None) -> dict:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        return encdec.init_encdec(gen, cfg, device=dev, policy=policy)
+
+    return Model(
+        cfg=cfg,
+        device=dev,
+        init=init,
+        init_cache=lambda p, batch, pol, S_max: encdec.init_dec_cache(p, batch["frames"], cfg,
+                                                                      pol, S_max),
+        prefill=None,
+        decode_step=lambda p, tok, cache, pol: encdec.decode_step(p, tok, cache, cfg, pol),
+        loss=_training_not_ported(cfg.family),
+        forward=_training_not_ported(cfg.family),
     )

@@ -33,13 +33,16 @@ from repro_torch.models.moe import apply_moe, init_moe
 LOSS_CHUNK = 1024  # sequence-chunked CE to bound peak logits memory
 
 
-SERVED_FAMILIES = ("dense", "moe")
+# the decoder-only families this module builds; the port serves whisper
+# too, through models/encdec.py
+DECODER_FAMILIES = ("dense", "moe")
 
 
 def _require_served(cfg: ModelCfg) -> None:
-    if cfg.family not in SERVED_FAMILIES:
+    if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port serves {SERVED_FAMILIES})")
+            f"family {cfg.family!r} has no decoder-only path (this module builds "
+            f"{DECODER_FAMILIES}; whisper is served through models/encdec.py)")
 
 
 def _require_dense(cfg: ModelCfg) -> None:
@@ -188,11 +191,6 @@ def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,
     }
 
 
-def _layer_cache(kv: dict, i: int) -> dict:
-    """Layer i's views into the stacked cache (writes land in the stack)."""
-    return {"k": kv["k"][i], "v": kv["v"][i], "len": kv["len"][i]}
-
-
 def _decode_layers(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
                    policy: TransPolicy, attend) -> tuple:
     """The decode step's body, shared by the slot grid and the paged pool:
@@ -229,7 +227,7 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
     lens = cache["lens"]
 
     def attend(p, acfg, h, i, rope, residual):
-        return attn.decode_attention_step(p, acfg, h, _layer_cache(cache["kv"], i), lens,
+        return attn.decode_attention_step(p, acfg, h, attn.layer_cache(cache["kv"], i), lens,
                                           policy, rope=rope, residual=residual,
                                           path="attn")[0]
 
@@ -288,7 +286,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPoli
     for i, p in enumerate(params["blocks"]):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the residuals fuse into wo's epilogue (and a dense MLP's down projection's)
-        x, _ = attn.prefill_attention(p["attn"], acfg, h, _layer_cache(cache["kv"], i),
+        x, _ = attn.prefill_attention(p["attn"], acfg, h, attn.layer_cache(cache["kv"], i),
                                       policy, residual=x, path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = _ffn(p, h, x, cfg, policy)

@@ -11,8 +11,9 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import (EagerTwin, assert_bit_identical, attn_inputs, eager_twin, live_codes,
-                        page_cache, prefix_requests, serve_recorded_timed, served_recorded)
+from chip_smoke import (EagerTwin, assert_bit_identical, attn_inputs, check_small_whisper,
+                        eager_twin, live_codes, page_cache, prefix_requests, recorded_binds,
+                        serve_recorded_timed, served_recorded)
 from repro_torch import kernels
 from repro_torch.configs import get_arch
 from repro_torch.core.pack import pack_p8, unpack_p8
@@ -1116,3 +1117,77 @@ def test_moe_paged_engine_on_card_matches_grid(dev):
     assert runs["paged"]["tokens"] == runs["grid"]["tokens"]
     assert_bit_identical(runs["paged"]["seen"], runs["grid"]["seen"], "moe paged")
 
+
+
+def test_whisper_reduced_on_card_matches_cpu(dev):
+    """The reduced whisper-medium, P8_SERVE: the encoder, the cross K/V and
+    8 teacher-forced + 4 greedy decode steps on the card within 0.05 of the
+    CPU's plain versions (chip_smoke.py's ``check_small_whisper``)."""
+    row = check_small_whisper()
+    assert row["max_logit_err"] <= row["bound"] and row["init_cache_launches"]
+
+
+def _static_runs(model, params, prompts, gen, frames=None) -> dict:
+    """``generate_static`` twice on one set of params: the decode step
+    captured (``bind_step``, as served) and run eagerly; each run's result,
+    every decode step's logits and the bound step."""
+    from repro_torch.launch.serve import generate_static
+
+    runs = {}
+    for name in ("graph", "eager"):
+        seen, steps = [], {}
+        with recorded_binds(seen, steps, eager=name == "eager"):
+            run = generate_static(model, params, P8_SERVE, prompts, gen, frames=frames)
+        assert (name == "graph") == isinstance(steps["step"], CapturedStep)
+        runs[name] = (run, seen)
+    return runs
+
+
+def test_whisper_static_graph_matches_eager_on_card(dev):
+    """Static mode on the reduced whisper: the decode step captured
+    (``bind_step``) against the same step run eagerly, from the same
+    frames and prompts: every step's logits, the tokens and both caches bit
+    for bit."""
+    cfg = get_arch("whisper-medium").reduced()
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    gen = torch.Generator().manual_seed(3)
+    prompts = torch.randint(0, cfg.vocab, (3, 6), generator=gen)
+    frames = torch.randn((3, cfg.enc_frames, cfg.d_model), generator=gen)
+    runs = _static_runs(model, params, prompts, 5, frames)
+    (g, g_seen), (e, e_seen) = runs["graph"], runs["eager"]
+    assert_bit_identical(g_seen, e_seen, "whisper static")
+    assert torch.equal(g["tokens"], e["tokens"])
+    for c in ("self", "cross"):
+        for kv in ("k", "v", "len"):
+            assert torch.equal(g["cache"][c][kv], e["cache"][c][kv]), (c, kv)
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "olmoe-1b-7b"])
+def test_prefilled_static_graph_matches_eager_on_card(dev, arch):
+    """Static mode on a family with a prefill (the reduced qwen2.5-14b and
+    olmoe-1b-7b, P8_SERVE): the batch prefilled, then the decode step
+    captured over the cache the prefill built, against the same step run
+    eagerly: every step's logits, the tokens and the K/V cache bit for bit.
+    qwen's tokens are also the continuous engine's on the same prompts, all
+    at t = 0 (B = 1 prefills, the same slots)."""
+    import numpy as np
+
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    B, L, G = 3, 10, 6
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, L))
+    runs = _static_runs(model, params, prompts, G)
+    (g, g_seen), (e, e_seen) = runs["graph"], runs["eager"]
+    assert len(g_seen) == G - 1
+    assert_bit_identical(g_seen, e_seen, f"{arch} static")
+    assert torch.equal(g["tokens"], e["tokens"])
+    for kv in ("k", "v", "len"):
+        assert torch.equal(g["cache"]["kv"][kv], e["cache"]["kv"][kv]), kv
+    if arch == "qwen2.5-14b":
+        eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=B, S_max=L + G)
+        done = eng.run([Request(rid=i, prompt=prompts[i].astype(np.int32), max_new_tokens=G)
+                        for i in range(B)])
+        for c in done:
+            assert c.tokens == g["tokens"][c.rid].tolist(), c.rid
