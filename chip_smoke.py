@@ -40,7 +40,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      every whisper-medium linear (q/k/v and frame_proj with a bias, wo
      and the MLP down with a bias and the residual, the MLP up with a bias
      and gelu) at the encoder's 6,000 rows (the wgmma kernel) and a decode
-     step's 4;
+     step's 4; the calibration forward's products on float (bf16) weights:
+     phi3-mini-3.8b's q/o, gate (silu), down (the residual) and lm_head at
+     M = 256 (the wgmma kernel) and olmoe-1b-7b's expert products at C =
+     40 rows (the mid-M kernel);
      the quire GEMM kernel against its plain version, bit for bit, at
      phi3-mini-3.8b's shapes, and against itself unsplit, on Gaussian
      operands and on wide-span ones (every non-NaR code, minpos and maxpos
@@ -151,6 +154,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      and no split-K epilogue kernel; the quire step one
      kernel a quire GEMM call, no readout or split-sum kernel), with the
      quire step's share of per-product-branch products;
+  5c. the calibration path (``calib/``), after the served paths' memory
+     is freed (``run_calib_phi3``, ``run_calib_olmoe``): phi3-mini-3.8b at
+     full width and depth, float weights from seed 0, the p8-serve base,
+     its loss observed over 4 batches of 4 x 64 tokens (the launch counts
+     set to 0 just before and read just after) and searched at 1x and 1.5x
+     the p8 floor; ``calibrate_model`` chooses the same again; (a) the
+     observed loss is the unobserved loss bit for bit; (b) at attn/wq,
+     mlp/down and lm_head the weight histogram is 4 times a float64 numpy
+     recount of the site's tensors on the host, the act count 4 x 256 x
+     d_in a layer; (c) the artifact saved, reloaded through ``@path`` and
+     quantized again gives the same codes; (d) on a fifth batch the
+     calibrated 1x policy's final hidden state is nearer the float
+     forward's (``TransPolicy()``) than the p8-weights preset's; (e) at
+     1.5x the bytes keep to the budget and some site is p16; one loss
+     timed unobserved and observed (device ms by codec, GEMM and torch
+     kernels, the observer's share, launches a forward); the calibrated
+     policy and the p8-weights preset served (4 slots, 8 x (64 + 16)) and
+     profiled, graph ≡ eager. olmoe-1b-7b the same at 1x, the moe/* sites
+     present, every expert product of the observed run on the mid-M
+     kernel at C = 40 (counted exactly). The reduced olmoe's ``lm_loss``
+     (ce, aux) and hidden state on the card within the CPU parity test's
+     bounds (``check_small_moe_loss``);
   5t. the training path (``repro_torch.launch.train``), after phase 5's
      decode profiles: (a) reduced qwen2.5-14b and phi3-mini-3.8b under
      ``none`` and ``p16-train``, three train steps on the card against the
@@ -571,6 +596,17 @@ def gemm_cases():
                   True, "relu", False, torch.bfloat16))
     cases.append(("p8 x p8 out M257 1024x1024", 257, 1024, 1024, P8_0, P8_0, P8_0,
                   True, "none", True))
+    # the calibration forward's products, float weights read as bf16 (the
+    # straight-through forward): phi3-mini-3.8b at 4 x 64 tokens (M = 256,
+    # the wgmma kernel) and olmoe-1b-7b's experts at C = 40 rows
+    # (capacity(256, 8, 1.25, 64): the mid-M kernel)
+    for K, N, act, res in ((3072, 3072, "none", False), (3072, 8192, "silu", False),
+                           (8192, 3072, "none", True), (3072, 32064, "none", False)):
+        cases.append((f"phi3 bf16 M256 {K}x{N} {act}", 256, K, N, BF16, torch.float32, F32,
+                      False, act, res))
+    for K, N, act in ((2048, 1024, "silu"), (2048, 1024, "none"), (1024, 2048, "none")):
+        cases.append((f"olmoe expert bf16 M40 {K}x{N} {act}", 40, K, N, BF16, torch.float32,
+                      F32, False, act, False))
     # every whisper-medium linear as the model calls it, at the encoder's
     # B * T = 4 x 1,500 rows (the wgmma kernel) and a 4-row decode step (the
     # decode tile): frame_proj, q/k/v and the cross k/v (bias); wo (bias,
@@ -1913,7 +1949,7 @@ PROFILE_GEN = 32
 def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 4,
                    share: bool = False, swap=None, engine=ContinuousBatchingEngine,
                    engine_kw=None, slots: int = 4, model=None, params=None,
-                   keep_recorded: bool = False) -> dict:
+                   keep_recorded: bool = False, twin: bool = True) -> dict:
     """Where a decode step's time goes, with the step captured in a CUDA
     graph and run eagerly (``EagerTwin``): the full model at 4 busy slots,
     the same params, requests and seeds for both. Each engine first serves
@@ -1932,13 +1968,15 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     as many requests (``profile_requests``). ``model`` and ``params`` are
     the caller's if given (else built from ``arch``, seed 0); with
     ``keep_recorded`` the graph run's recorded streams and logits are under
-    "recorded"."""
+    "recorded". Without ``twin`` only the graph half runs: its numbers, with
+    no eager run and no comparison."""
     own = model is None
     if own:
         model = build_model(arch)
         params = model.init(0, policy)
     runs = {}
-    for name, cls in (("graph", engine), ("eager", eager_twin(engine))):
+    halves = (("graph", engine), ("eager", eager_twin(engine)))
+    for name, cls in halves if twin else halves[:1]:
         kernels.reset_launches()
         eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + PROFILE_GEN,
                   **(engine_kw or {}))
@@ -1964,12 +2002,17 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
         runs[name] = (stats, recorded, {c.rid: c.tokens for c in eng.completions})
         del eng
         torch.cuda.empty_cache()
-    (graph, (g_rec, g_seen), g_tokens), (eager, (e_rec, e_seen), e_tokens) = \
-        runs["graph"], runs["eager"]
-    assert g_tokens == e_tokens and g_rec == e_rec, \
-        f"{arch.name}: graph and eager token streams differ"
+    graph, (g_rec, g_seen), g_tokens = runs["graph"]
     if swap is None:
         assert g_tokens == g_rec, f"{arch.name}: the run after a reset served other tokens"
+    if not twin:
+        if own:
+            del params, model
+        torch.cuda.empty_cache()
+        return graph
+    eager, (e_rec, e_seen), e_tokens = runs["eager"]
+    assert g_tokens == e_tokens and g_rec == e_rec, \
+        f"{arch.name}: graph and eager token streams differ"
     assert_bit_identical(g_seen, e_seen, f"{arch.name}: graph against eager")
     assert graph["run_launches"] == eager["run_launches"], (graph["run_launches"],
                                                            eager["run_launches"])
@@ -3725,6 +3768,350 @@ def whisper_timings() -> list:
     return rows
 
 
+# ------------------------------------------------------ the calibration path ----
+
+CALIB_N, CALIB_BATCH, CALIB_SEQ = 4, 4, 64   # 4 batches of 4 x 64 tokens
+CALIB_CHECK_SITES = ("attn/wq", "mlp/down", "lm_head")
+CALIB_REQUESTS, CALIB_PROMPT, CALIB_GEN = 8, 64, 16
+# the reduced olmoe's lm_loss on the card against the CPU under P8_SERVE:
+# tests/test_torch_moe_loss.py's bounds against the reference (the final
+# hidden state within 1e-2 of its largest magnitude, ce and aux 1e-4 relative)
+MOE_LOSS_H, MOE_LOSS_REL = 1e-2, 1e-4
+
+
+def fmt_counts(report: dict) -> dict:
+    """Sites per chosen format, packed or not ("p8_1:packed": 6, ...)."""
+    out: dict = {}
+    for s in report["sites"]:
+        key = s["fmt"] + (":packed" if s["packed"] else "")
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def site_weights(params, site: str) -> list:
+    """Every float weight at ``site`` (one a layer), by the search's own rule."""
+    from repro_torch.calib.search import _site_for
+    from repro_torch.models.layers import _walk_linears
+
+    return [parent[key] for path, parent, key in _walk_linears(params)
+            if _site_for(path, [site]) == site]
+
+
+def host_binade_hist(tensors) -> np.ndarray:
+    """The binade histogram of ``tensors`` recounted on the host in float64
+    numpy (``np.frexp``, exact), a thread a tensor: zeros, subnormals (the
+    observer's rule) and nonfinite values in no bin."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.calib import observe
+
+    def one(t):
+        x = np.abs(t.detach().float().cpu().numpy().reshape(-1).astype(np.float64))
+        x = x[np.isfinite(x) & (x >= np.finfo(np.float32).tiny)]
+        s = np.clip(np.frexp(x)[1] - 1, observe.BIN_LO, observe.BIN_HI) - observe.BIN_LO
+        return np.bincount(s, minlength=observe.NBINS).astype(np.float64)
+
+    with ThreadPoolExecutor(8) as pool:
+        return sum(pool.map(one, tensors))
+
+
+def device_split(kern: dict) -> dict:
+    """A call's device ms by what runs it (``time_ms``'s ``kernels_out``):
+    the codec kernels (the straight-through encode and decode), the GEMM
+    kernels (with their bf16 staging passes), and torch's own kernels
+    (elementwise, reductions, norms, attention)."""
+    out = {"codec": 0.0, "gemm": 0.0, "torch": 0.0}
+    for name, (_, us) in kern.items():
+        gemm = re.search(r"gemm|gemv|wgmma|large_fma|splitk|(a_bf16|b_bf16|mid_a16)_kernel", name)
+        key = ("gemm" if gemm
+               else "codec" if re.search(r"\b(encode|decode)_kernel", name) else "torch")
+        out[key] += us / 1e3
+    return out
+
+
+def observed_forward_costs(model, params, batch, base) -> dict:
+    """The device time of one loss unobserved and one observed (torch.profiler,
+    ``time_ms``), split by ``device_split``, the observer's share of the
+    observed one, and the launches by kernel key of one observed loss."""
+    from repro_torch.calib.observe import Observer, observing
+
+    def plain():
+        with torch.no_grad():
+            model.loss(params, batch, base)
+
+    def observed():
+        with observing(Observer()), torch.no_grad():
+            model.loss(params, batch, base)
+
+    k_plain, k_obs = {}, {}
+    ms_plain = time_ms(plain, windows=1, calls=1, kernels_out=k_plain)
+    ms_obs = time_ms(observed, windows=1, calls=1, kernels_out=k_obs)
+    kernels.reset_launches()
+    observed()
+    torch.cuda.synchronize()
+    split_plain, split_obs = device_split(k_plain), device_split(k_obs)
+    return {"unobserved_ms": ms_plain, "observed_ms": ms_obs,
+            "observer_share": (ms_obs - ms_plain) / ms_obs,
+            "unobserved_split_ms": split_plain, "observed_split_ms": split_obs,
+            "kernels_per_forward": {"unobserved": sum(r[0] for r in k_plain.values()),
+                                    "observed": sum(r[0] for r in k_obs.values())},
+            "observed_top_ms": {n: [r[0], r[1] / 1e3] for n, r in sorted(
+                k_obs.items(), key=lambda kv: -kv[1][1])[:8]},
+            "launches_one_observed_forward": {k: v for k, v in kernels.LAUNCHES.items() if v}}
+
+
+def calibrate_full(arch, budgets, base=P8_SERVE) -> tuple:
+    """``arch`` at full width and depth, float weights from seed 0, observed
+    under ``base`` over CALIB_N batches of CALIB_BATCH x CALIB_SEQ tokens
+    (and one more held out), searched at each budget; the launch counts set
+    to 0 just before the observed run and read just after. Checks (a): the
+    observed loss is the unobserved loss bit for bit. Returns (model,
+    params, batches, observer, {budget: (policy, report)}, line)."""
+    from repro_torch.calib import search
+    from repro_torch.calib.observe import Observer, collect_stats, observing
+
+    model = build_model(arch)
+    t0 = time.perf_counter()
+    params = model.init(0)
+    batches = search.calibration_batches(arch, np.random.default_rng(0), CALIB_N + 1,
+                                         batch=CALIB_BATCH, seq=CALIB_SEQ, device=model.device)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    loss = lambda b: model.loss(params, b, base)[0]          # noqa: E731
+    with torch.no_grad():
+        plain = loss(batches[0])
+        with observing(Observer()):
+            seen = loss(batches[0])
+    assert torch.equal(plain.view(torch.int32), seen.view(torch.int32)), \
+        f"{arch.name}: the observed loss {float(seen)} is not the unobserved {float(plain)}"
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    obs = collect_stats(loss, batches[:CALIB_N])
+    observe_s = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    plans = search.build_site_plans(params, obs)
+    out = {}
+    for budget in budgets:
+        choice, report = search.search(plans, budget)
+        report.update(n_sites=len(plans), name=f"calibrated-{arch.name}")
+        out[budget] = (search.emit_policy(plans, choice, base=base, name=report["name"]),
+                       report)
+    search_s = time.perf_counter() - t0
+    # calibrate_model, the entry point, chooses the same on the same run
+    t0 = time.perf_counter()
+    pol, report = search.calibrate_model(loss, batches[:CALIB_N], params, base=base,
+                                         byte_budget=budgets[0],
+                                         name=f"calibrated-{arch.name}")
+    again_s = time.perf_counter() - t0
+    assert pol.to_json() == out[budgets[0]][0].to_json(), \
+        f"{arch.name}: calibrate_model chose otherwise on a second observed run"
+    line = {"arch": arch.name, "base": base.describe(), "batches": [CALIB_N, CALIB_BATCH,
+                                                                    CALIB_SEQ],
+            "draw_s": draw_s, "observe_s": observe_s, "search_s": search_s,
+            "calibrate_model_s": again_s, "observed_loss_bit_identical": True,
+            "loss": float(plain), "launches": launches,
+            "budgets": {b: {**{k: r[k] for k in ("n_sites", "p8_floor_bytes", "byte_budget",
+                                                 "weight_bytes", "predicted_err_score")},
+                            "formats": fmt_counts(r),
+                            "sites": {x["path"]: x["fmt"] + (":packed" if x["packed"] else "")
+                                      for x in r["sites"]}}
+                        for b, (_, r) in out.items()}}
+    return model, params, batches, obs, out, line
+
+
+def check_calib_stats(params, obs, cfg) -> dict:
+    """(b): at ``CALIB_CHECK_SITES`` the weight histogram is CALIB_N times a
+    float64 numpy recount of the site's tensors on the host, and the act
+    count is CALIB_N x 256 x d_in a layer at the site."""
+    rows = {}
+    for site in CALIB_CHECK_SITES:
+        ws = site_weights(params, site)
+        want = CALIB_N * host_binade_hist(ws)
+        st = obs.get(site, "weight")
+        assert np.array_equal(st.hist, want), f"{site}: the weight histogram is not the recount"
+        assert st.n == CALIB_N * sum(w.numel() for w in ws)
+        act = obs.get(site, "act")
+        d_in = ws[0].shape[0]
+        assert act.n == CALIB_N * CALIB_BATCH * CALIB_SEQ * d_in * len(ws), (site, act.n)
+        rows[site] = {"layers": len(ws), "weight_n": st.n, "act_n": act.n,
+                      "bins": int(np.count_nonzero(want))}
+    return rows
+
+
+def run_calib_phi3() -> dict:
+    """phi3-mini-3.8b at full width: calibrated at 1x and 1.5x under the
+    p8-serve base (checks (a)-(e)), the forward's costs, then the
+    calibrated 1x policy and the p8-weights preset (the same bytes) served
+    through the continuous engine and profiled (graph against eager)."""
+    import os
+    import tempfile
+
+    from repro_torch.calib import search
+    from repro_torch.core.pcsr import TransPolicy
+    from repro_torch.core.policy import PRECISION_PRESETS, get_precision_policy
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.layers import quantize_params
+
+    model, params, batches, obs, out, line = calibrate_full(PHI3, ("1x", "1.5x"))
+    t0 = time.perf_counter()
+    line["stats_checked"] = check_calib_stats(params, obs, PHI3)
+    line["stats_check_s"] = time.perf_counter() - t0
+    del obs
+    t0 = time.perf_counter()
+    line["forward"] = observed_forward_costs(model, params, batches[0], P8_SERVE)
+    line["forward_costs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pol1, rep1 = out["1x"]
+    pol15, rep15 = out["1.5x"]
+    # (e) the 1.5x budget holds, and buys p16 somewhere
+    assert rep15["weight_bytes"] <= rep15["byte_budget"], rep15["weight_bytes"]
+    assert any(s["fmt"].startswith("p16") for s in rep15["sites"]), fmt_counts(rep15)
+    # (c) the artifact reloads and quantizes to the same codes on the card
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        path = os.path.join(tmp, "cal.json")
+        search.save_artifact(path, pol1, rep1)
+        loaded = get_precision_policy("@" + path)
+    q1 = quantize_params(params, pol1)
+    for a, b in zip(tree_leaves(q1), tree_leaves(quantize_params(params, loaded))):
+        assert a.dtype == b.dtype and torch.equal(a, b), "the reloaded artifact quantizes otherwise"
+    # (d) the held-out batch: the calibrated policy's hidden state nearer the
+    # float forward's than the p8-weights preset's at the same bytes
+    preset = PRECISION_PRESETS["p8-weights"].with_base(P8_SERVE)
+    with torch.no_grad():
+        ref = model.forward(params, batches[-1], TransPolicy())
+        errs = {}
+        for name, pol in (("calibrated_1x", pol1), ("p8_weights", preset)):
+            h = model.forward(params, batches[-1], pol)
+            errs[name] = float(torch.sqrt(torch.mean((h - ref) ** 2) / torch.mean(ref ** 2)))
+    assert errs["calibrated_1x"] < errs["p8_weights"], errs
+    line["held_out_rel_rmse"] = errs
+    qp = quantize_params(params, preset)
+    del params, ref, h
+    torch.cuda.empty_cache()
+    line["checks_cde_s"] = time.perf_counter() - t0
+    line["served"] = {}
+    for name, pol, qparams, twin in (("calibrated_1x", pol1, q1, True),
+                                     ("p8_weights", preset, qp, False)):
+        t0 = time.perf_counter()
+        line["served"][name] = calib_serve(model, qparams, pol, name, twin)
+        line["served"][name]["seconds"] = time.perf_counter() - t0
+    del q1, qp
+    torch.cuda.empty_cache()
+    return line
+
+
+def calib_serve(model, params, pol, name: str, twin: bool) -> dict:
+    """CALIB_REQUESTS requests (prompt CALIB_PROMPT, gen CALIB_GEN) through
+    the continuous engine at 4 slots under ``pol`` (tokens/s over the run
+    after a warm-up), then the captured step's device ms and idle share at
+    4 busy slots, by ``profile_decode`` on the same params: with ``twin``
+    graph against eager bit for bit, else the graph alone."""
+    eng = ContinuousBatchingEngine(model, params, pol, max_slots=4,
+                                   S_max=CALIB_PROMPT + CALIB_GEN, seed=0)
+    eng.submit(Request(rid=-1, prompt=np.zeros((CALIB_PROMPT,), np.int32), max_new_tokens=3))
+    eng.admit()
+    eng.step()
+    eng.reset(seed=0)
+    reqs = poisson_requests(CALIB_REQUESTS, arrival_rate=0.0, prompt_lens=(CALIB_PROMPT,),
+                            max_new_tokens=CALIB_GEN, vocab=model.cfg.vocab, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    makespan = time.perf_counter() - t0
+    tokens = sum(len(c.tokens) for c in done)
+    assert len(done) == CALIB_REQUESTS and tokens == CALIB_REQUESTS * CALIB_GEN, (name, tokens)
+    assert eng.nonfinite_rows == 0, f"{name}: non-finite logits"
+    sample = min(done, key=lambda c: c.rid).tokens[:8]
+    del eng
+    torch.cuda.empty_cache()
+    prof = profile_decode(model.cfg, pol, prompt_len=CALIB_PROMPT, model=model, params=params,
+                          twin=twin)
+    assert prof["captured"], f"{name}: the decode step was not captured"
+    return {"tokens": tokens, "makespan_s": makespan, "decode_tok_per_s": tokens / makespan,
+            "sample_tokens": sample, "graph_decode_tok_per_s": prof["decode_tok_per_s"],
+            "step_wall_ms": prof["step_ms"],
+            **({"graph_vs_eager": graph_line(name, prof)} if twin else {}),
+            "step_device_ms": prof["device_busy_us_per_step"] / 1e3,
+            "step_idle_share": prof["device_idle_share"],
+            "launches_per_step": {k: v for k, v in prof["launches_per_step"].items() if v}}
+
+
+def run_calib_olmoe() -> dict:
+    """olmoe-1b-7b at full width: calibrated at 1x under the p8-serve base
+    (check (a)); the expert sites among the sites; every expert product of
+    the observed run on the mid-M kernel at C = 40 rows (three an expert, a
+    layer and a batch, counted exactly); the forward's costs."""
+    from repro_torch.models.moe import capacity
+
+    olmoe = get_arch(OLMOE)
+    model, params, batches, obs, out, line = calibrate_full(olmoe, ("1x",))
+    sites = {s["path"] for s in out["1x"][1]["sites"]}
+    assert {"moe/w_gate", "moe/w_up", "moe/w_down", "moe/router"} <= sites, sorted(sites)
+    C = capacity(CALIB_BATCH * CALIB_SEQ, olmoe.top_k, olmoe.capacity_factor, olmoe.n_experts)
+    experts = 3 * olmoe.n_experts * olmoe.n_layers
+    assert line["launches"].get("posit_gemm_mid_tc") == CALIB_N * experts, line["launches"]
+    del obs
+    line["forward"] = observed_forward_costs(model, params, batches[0], P8_SERVE)
+    line["expert_rows"] = C
+    line["expert_gemm_launches_per_forward"] = experts
+    line["sites"] = sorted(sites)
+    del params, model
+    torch.cuda.empty_cache()
+    return line
+
+
+def check_small_moe_loss(policy=P8_SERVE) -> dict:
+    """The reduced olmoe-1b-7b's ``lm_loss`` (ce and aux) and final hidden
+    state on the card against the same on the CPU (plain versions), within
+    tests/test_torch_moe_loss.py's bounds."""
+    cfg = get_arch(OLMOE).reduced()
+    cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    params_cpu = cpu_model.init(0)
+    params_gpu = _to(params_cpu, DEV)
+    rng = np.random.default_rng(0)
+    b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24))),
+         "labels": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 24)))}
+    bg = {k: v.to(DEV) for k, v in b.items()}
+    with torch.no_grad():
+        _, mc = cpu_model.loss(params_cpu, b, policy)
+        _, mg = gpu_model.loss(params_gpu, bg, policy)
+        hc = cpu_model.forward(params_cpu, b, policy)
+        hg = gpu_model.forward(params_gpu, bg, policy).cpu()
+    h_err = float((hg - hc).abs().max() / hc.abs().max())
+    rel = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k])) for k in ("ce", "aux")}
+    assert h_err <= MOE_LOSS_H and max(rel.values()) <= MOE_LOSS_REL, (h_err, rel)
+    return {"arch": cfg.name, "policy": policy.describe(), "hidden_err": h_err,
+            "hidden_bound": MOE_LOSS_H, "loss_rel_err": rel, "loss_bound": MOE_LOSS_REL,
+            "ce": float(mg["ce"]), "aux": float(mg["aux"])}
+
+
+def check_measured_err() -> dict:
+    """``errmodel.measured_sq_rel_err``, the error model's oracle, through
+    the codec kernels on the card and through their plain versions on the
+    CPU: the same value bit for bit for every candidate format at binades
+    inside its range, at its edges and past them."""
+    from repro_torch.calib.errmodel import CANDIDATES, expected_sq_rel_err, measured_sq_rel_err
+
+    rows = {}
+    for f in CANDIDATES:
+        top = (f.nbits - 2) << f.es
+        for s in sorted({-top - 1, -top, -3, 0, top - 1, top}):
+            got, want = (measured_sq_rel_err(f.nbits, f.es, s, n_samples=4096, seed=s & 7,
+                                             device=d) for d in ("cuda", "cpu"))
+            assert got.hex() == want.hex(), (f.nbits, f.es, s, got, want)
+            rows[f"p{f.nbits}_{f.es}@{s}"] = [got, expected_sq_rel_err(f.nbits, f.es, s)]
+    return {"cases": len(rows), "bit_identical": True, "measured_vs_model": rows}
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
@@ -3932,6 +4319,26 @@ def main() -> int:
     log("graph_vs_eager", path="whisper", **{k: w_prof[k] for k in (
         "captured", "decode_steps_compared", "bit_identical", "launches_equal", "graph",
         "eager", "step_ms", "device_busy_ms_per_step", "device_idle_share")})
+    # the calibration path after the served paths, their memory freed:
+    # phi3-mini-3.8b (15.3 GB of f32 weights) then olmoe-1b-7b (27.6 GB)
+    card = nvidia_smi()
+    torch.cuda.empty_cache()
+    t_calib = time.perf_counter()
+    calib_phi3 = run_calib_phi3()
+    DETAILS["calib_phi3"] = calib_phi3
+    log("calib_path", card=card, **{k: v for k, v in calib_phi3.items() if k != "served"})
+    for name, served in calib_phi3["served"].items():
+        log("calib_serve", card=card, arch=PHI3.name, policy=name,
+            **{k: v for k, v in served.items() if k != "graph_vs_eager"})
+    log("graph_vs_eager", **calib_phi3["served"]["calibrated_1x"]["graph_vs_eager"])
+    t0 = time.perf_counter()
+    calib_olmoe = run_calib_olmoe()
+    DETAILS["calib_olmoe"] = calib_olmoe
+    log("calib_path", card=card, seconds=time.perf_counter() - t0, **calib_olmoe)
+    log("calib_moe_loss", card=card, **check_small_moe_loss())
+    log("calib_errmodel", card=card, **check_measured_err())
+    log("calib_phase", card=card, seconds=time.perf_counter() - t_calib)
+    torch.cuda.empty_cache()
     # phase 5t after the profiles: its 40 GB of allocations and its own
     # profiled steps come after every decode profile's window
     log("train_reduced", **check_train_reduced())
@@ -3962,6 +4369,8 @@ def main() -> int:
                                 "long": l_launches, "softmax": sm_launches,
                                 "paged": p_launches, "paged_serve": ps_launches,
                                 "moe": moe_launches, "whisper": w_launches,
+                                "calib_phi3": calib_phi3["launches"],
+                                "calib_olmoe": calib_olmoe["launches"],
                                 **{"train_" + k: v["launches_run"]
                                    for k, v in train_lines.items()}}
     launches = dict(launches, posit_gemm_packed=m_launches["posit_gemm_packed"],
@@ -3980,8 +4389,7 @@ def main() -> int:
     log("train_timings", **DETAILS["train_timings"])
     log("attention_paged_timings", rows=DETAILS["paged_attention_timings"])
     log("gemm_large_timings", rows=DETAILS["gemm_large_timings"])
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
+    smi = nvidia_smi()
     DETAILS.update(kernels=rows, nvidia_smi=smi, seconds=time.perf_counter() - t_start)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

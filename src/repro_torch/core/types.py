@@ -55,6 +55,11 @@ class PositFmt:
     def storage_bytes(self) -> int:
         return self.nbits // 8
 
+    @property
+    def max_scale(self) -> int:
+        """Largest power-of-two scale: (n-2) * 2^es (maxpos = 2^max_scale)."""
+        return (self.nbits - 2) << self.es
+
     def with_es(self, es: int) -> "PositFmt":
         return PositFmt(self.nbits, es)
 

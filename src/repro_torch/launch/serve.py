@@ -32,6 +32,24 @@ mode, KV bytes per token, linear-weight bytes under the policy and in f32,
 kernel launches during the run, and the KV cache's decoded health). Runs on
 the CUDA device unless ``--device cpu``.
 
+``--calibrate N`` runs the calibration plane (``calib/``, DESIGN.md §11)
+before serving, in either mode: the weights are drawn as floats from
+``--seed`` on the device, the model's loss runs under the ``--policy`` base
+over N seeded batches of ``--batch`` x ``--prompt-len`` tokens with an
+observer streaming every linear's weight and activation histograms, the
+byte-budgeted search (``--weight-byte-budget``: ``1.5x`` the p8 floor, or
+bytes; default the floor, the ``p8-weights`` preset's bytes) picks each
+site's format and es, the weights are quantized under the emitted policy
+(the f32 masters freed) and served under it. It prints one
+``serve/calibration`` line; ``--policy-out cal.json`` saves the artifact
+(one ``serve/policy-out`` line), which ``--precision-policy @cal.json``
+serves again::
+
+    python -m repro_torch.launch.serve --arch phi3-mini-3.8b --continuous \
+        --calibrate 4 --policy-out cal.json
+
+Calibration needs the model's loss: the whisper family is refused.
+
 ``--paged`` serves through the paged prefix-sharing engine
 (``launch/paged_engine.py``, with ``--continuous``): ``--page-bytes`` is a
 layer's K+V bytes of one page (the default 2,048 is one token a page at
@@ -59,7 +77,8 @@ from repro_torch.kernels.posit_codec import ops as codec_ops
 from repro_torch.launch.engine import (CapturedStep, ContinuousBatchingEngine, Request,
                                        poisson_requests)
 from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
-from repro_torch.models.layers import policy_weight_bytes
+from repro_torch.models import transformer
+from repro_torch.models.layers import policy_weight_bytes, quantize_params
 from repro_torch.models.registry import build_model
 
 
@@ -120,15 +139,63 @@ def build_policy(policy: str = "p8-serve", precision_policy: Optional[str] = Non
     return pol if not precision_policy else get_precision_policy(precision_policy, base=pol)
 
 
+def calibrate(model, params, policy, *, n: int, batch: int, seq: int, seed: int,
+              weight_byte_budget=None, policy_out: Optional[str] = None,
+              emit: Callable[[dict], None]) -> tuple:
+    """observe -> search -> (optionally) persist, the reference's
+    ``_calibrate``: ``model.loss`` under ``policy``'s base over
+    ``calibration_batches(cfg, default_rng(seed), n, batch, seq)`` on the
+    float ``params``. Emits ``serve/calibration`` (and ``serve/policy-out``
+    with ``policy_out``); returns (the calibrated PrecisionPolicy, report).
+    Any per-layer rules of ``policy`` are superseded by the calibrated
+    schedule."""
+    from repro_torch.calib.search import calibrate_model, calibration_batches, save_artifact
+
+    cfg = model.cfg
+    base = policy.base if hasattr(policy, "base") else policy
+    batches = calibration_batches(cfg, np.random.default_rng(seed), n, batch=batch, seq=seq,
+                                  device=model.device)
+    # the loss, not the forward: it reaches the lm_head projection, which
+    # serving decodes through at every step
+    cal_policy, report = calibrate_model(
+        lambda b: model.loss(params, b, base)[0], batches, params, base=base,
+        byte_budget=weight_byte_budget, name=f"calibrated-{cfg.name}")
+    emit({"kind": "serve/calibration", "calibration": {
+        k: report[k] for k in ("n_sites", "p8_floor_bytes", "byte_budget", "weight_bytes",
+                               "predicted_err_score")}})
+    if policy_out:
+        save_artifact(policy_out, cal_policy, report)
+        emit({"kind": "serve/policy-out", "policy_out": policy_out})
+    return cal_policy, report
+
+
+def init_params(model, policy, seed: int, calibration: Optional[dict] = None,
+                emit: Callable[[dict], None] = None) -> tuple:
+    """The served params and policy: drawn from ``seed`` and quantized layer
+    by layer under ``policy``; with ``calibration`` (``calibrate``'s
+    keywords ``n``, ``batch``, ``seq``, ``weight_byte_budget``,
+    ``policy_out``) drawn as floats, calibrated, quantized under the
+    calibrated policy, the f32 masters dropped."""
+    if not calibration:
+        return model.init(seed, policy), policy
+    if model.cfg.family not in transformer.DECODER_FAMILIES:
+        sys.exit(f"--calibrate drives the model's loss, which the {model.cfg.family} family "
+                 "does not have in the port (ROADMAP Queue 1 item 5b)")
+    params = model.init(seed)
+    policy, _ = calibrate(model, params, policy, seed=seed, emit=emit, **calibration)
+    return quantize_params(params, policy), policy
+
+
 def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str] = None,
           reduced: bool = False, max_slots: int = 4, requests: int = 8, prompt_len: int = 64, gen: int = 16,
           arrival_rate: float = 0.0, temperature: float = 0.0, top_k: int = 0,
           seed: int = 0, paged: bool = False, page_bytes: int = 2048,
-          n_blocks: Optional[int] = None, device="cuda",
+          n_blocks: Optional[int] = None, calibration: Optional[dict] = None, device="cuda",
           emit: Callable[[dict], None] = None) -> dict:
     """Build ``arch`` from ``seed``, serve ``requests`` through the
     continuous-batching engine (the paged one with ``paged``) and return the
-    report (also emitted)."""
+    report (also emitted). With ``calibration``, calibrate first
+    (``init_params``)."""
     emit = emit or (lambda ev: print(json.dumps(ev), flush=True))
     cfg = get_arch(arch)
     cfg = cfg.reduced() if reduced else cfg
@@ -137,7 +204,7 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
     if model.prefill is None:
         sys.exit(f"--continuous needs a prefill entry point (family {cfg.family!r} has none)")
     t0 = time.perf_counter()
-    params = model.init(seed, pol)
+    params, pol = init_params(model, pol, seed, calibration, emit)
     weight_report = policy_weight_bytes(params, pol)
     S_max = prompt_len + gen
     common = dict(max_slots=max_slots, S_max=S_max, temperature=temperature, top_k=top_k,
@@ -297,11 +364,13 @@ def generate_static(model, params, policy, tokens, gen: int, *, frames=None) -> 
 
 def serve_static(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str] = None,
                  reduced: bool = False, batch: int = 4, prompt_len: int = 32, gen: int = 16,
-                 seed: int = 0, device="cuda", emit: Callable[[dict], None] = None) -> dict:
+                 seed: int = 0, calibration: Optional[dict] = None, device="cuda",
+                 emit: Callable[[dict], None] = None) -> dict:
     """Build ``arch`` from ``seed`` and serve one static batch of ``batch``
     prompts (``generate_static``): the prompts, then whisper's frames (B,
     enc_frames, d), drawn from ``np.random.default_rng(seed)`` in the
-    reference's order. Emits one ``serve/prefill`` line and returns the
+    reference's order. With ``calibration``, calibrate first
+    (``init_params``). Emits one ``serve/prefill`` line and returns the
     report (also emitted)."""
     emit = emit or (lambda ev: print(json.dumps(ev), flush=True))
     cfg = get_arch(arch)
@@ -309,7 +378,7 @@ def serve_static(arch: str, *, policy: str = "p8-serve", precision_policy: Optio
     pol = build_policy(policy, precision_policy)
     model = build_model(cfg, device=device)
     t0 = time.perf_counter()
-    params = model.init(seed, pol)
+    params, pol = init_params(model, pol, seed, calibration, emit)
     weight_report = policy_weight_bytes(params, pol)
     _sync(model.device)
     setup_s = time.perf_counter() - t0
@@ -387,13 +456,27 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--calibrate", type=int, default=0, metavar="N",
+                    help="calibrate over N batches of --batch x --prompt-len tokens and "
+                         "serve under the calibrated per-site policy")
+    ap.add_argument("--weight-byte-budget", default=None,
+                    help="calibration's weight-byte budget: a multiple of the p8 floor "
+                         "('1.5x') or bytes (default: the floor)")
+    ap.add_argument("--policy-out", default=None, metavar="CAL.json",
+                    help="write the calibration artifact (--precision-policy @CAL.json "
+                         "serves it)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.paged and not args.continuous:
         ap.error("--paged rides the continuous-batching engine; add --continuous")
+    if not args.calibrate and (args.policy_out or args.weight_byte_budget):
+        ap.error("--policy-out / --weight-byte-budget require --calibrate N")
     common = dict(policy=args.policy, precision_policy=args.precision_policy,
                   reduced=args.reduced, prompt_len=args.prompt_len, gen=args.gen,
-                  seed=args.seed, device=args.device)
+                  seed=args.seed, device=args.device,
+                  calibration=dict(n=args.calibrate, batch=args.batch, seq=args.prompt_len,
+                                   weight_byte_budget=args.weight_byte_budget,
+                                   policy_out=args.policy_out) if args.calibrate else None)
     if not args.continuous:
         serve_static(args.arch, batch=args.batch, **common)
         return

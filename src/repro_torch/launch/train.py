@@ -35,7 +35,7 @@ NOT_PORTED = {
     "--profile-out": "obs/prof.py",
     "--telemetry-every": "obs/train.py",
     "--step-log": "obs/train.py",
-    "--calibration": "calib/ and obs/train.py",
+    "--calibration": "obs/train.py",
 }
 
 
@@ -72,10 +72,11 @@ def main(argv=None) -> dict:
     opt_cfg = AdamWConfig(lr=args.lr, moment_fmt=policy.optimizer)
     pipe = SyntheticLMPipeline(vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
                                seed=args.seed, device=device)
-    params = model.init(args.seed)
-    opt_state = adamw_init(params, opt_cfg)
+    # first, so a family that does not train (moe) is refused before its draw
     train_step = make_train_step(model, policy, opt_cfg, warmup=max(args.steps // 10, 1),
                                  total_steps=args.steps)
+    params = model.init(args.seed)
+    opt_state = adamw_init(params, opt_cfg)
 
     t0 = time.perf_counter()
     for step in range(args.steps):

@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.calib import observe
 from repro_torch.core.dot import apply_epilogue, posit_dot, posit_matmul_wx
 from repro_torch.core.pack import pack_p8, unpack_p8
 from repro_torch.core.pcsr import OperandSlots, TransPolicy
@@ -104,7 +105,9 @@ def effective_weight(p: dict, policy, es: Optional[int] = None, path: str = "") 
     ``w + stop_gradient(q(w) - w)``, whose
     gradient with respect to ``w`` is the identity; a float weight without
     one passes as it is. The encode and decode run through the codec
-    kernels."""
+    kernels. Under an active calibration observer a float weight's
+    statistics stream to it (``calib.observe``) at ``path``, before the
+    quantization."""
     policy = resolve_policy(policy, path)
     fmt = policy.weights
     coded = p.get("w_codes")
@@ -116,6 +119,8 @@ def effective_weight(p: dict, policy, es: Optional[int] = None, path: str = "") 
         return codec_ops.decode(coded, fmt.es if es is None else es, nbits=fmt.nbits,
                                 codec_impl=policy.codec_impl)
     w = p["w"]
+    if observe.is_active():
+        observe.record(path, "weight", w)
     if fmt is not None:
         e = fmt.es if es is None else es
         wf = w.detach().to(torch.float32).contiguous()
@@ -131,13 +136,17 @@ def apply_linear(p: dict, x: torch.Tensor, policy, es: Optional[int] = None,
                  residual: Optional[torch.Tensor] = None, path: str = "") -> torch.Tensor:
     """y = act(x @ W + b) + residual, epilogue fused with the GEMM (or
     chained after it under ``policy.epilogue == "chained"``). ``path`` names
-    the layer for a per-layer ``PrecisionPolicy``."""
+    the layer for a per-layer ``PrecisionPolicy`` and for an active
+    calibration observer, which records ``x`` as the layer's activation."""
+    if observe.is_active():
+        observe.record(path, "act", x)
     return _linear_resolved(p, x, resolve_policy(policy, path), es, activation=activation,
-                            residual=residual)
+                            residual=residual, path=path)
 
 
 def _linear_resolved(p: dict, x: torch.Tensor, policy: TransPolicy, es, *,
-                     activation: str, residual: Optional[torch.Tensor]) -> torch.Tensor:
+                     activation: str, residual: Optional[torch.Tensor],
+                     path: str) -> torch.Tensor:
     """apply_linear past policy resolution. x is rounded to the compute dtype
     for the GEMM (inside the kernel); the f32 result comes back as x.dtype,
     as in the reference."""
@@ -154,7 +163,7 @@ def _linear_resolved(p: dict, x: torch.Tensor, policy: TransPolicy, es, *,
                                residual=residual, out_dtype=x.dtype,
                                codec_impl=policy.codec_impl, epilogue=policy.epilogue,
                                packed=packed)
-    w = effective_weight(p, policy, es).to(cd).contiguous()
+    w = effective_weight(p, policy, es, path=path).to(cd).contiguous()
     K, N = w.shape
     lead = x.shape[:-1]
     res = None if residual is None else residual.reshape(-1, N).contiguous()
@@ -197,6 +206,9 @@ def _quire_linear(p: dict, x: torch.Tensor, policy: TransPolicy, fmt: PositFmt, 
 
 
 _WEIGHT_KEYS = ("w", "w_codes", "w_packed")
+# linears whose weights stay float under every policy (the reference's
+# convolution stems); calibration leaves them out
+_RAW_WEIGHT_PATTERNS = ("*conv*",)
 # MoE's stacked expert tensors (E, K, N): quantized to "<name>_codes", never
 # packed (the expert GEMMs read each expert's codes whole)
 EXPERT_KEYS = ("w_gate", "w_up", "w_down")

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.calib import observe
 from repro_torch.core.dot import posit_matmul_wx
 from repro_torch.kernels.posit_gemm.ops import float_linear
 from repro_torch.models.layers import (EXPERT_KEYS, apply_linear, compute_dtype,
@@ -119,13 +120,26 @@ def apply_moe(p: dict, x: torch.Tensor, *, top_k: int, capacity_factor: float,
     filled = slot < counts[:, None]
     buffers = torch.where(filled[..., None], xf[src // top_k].to(torch.float32), 0.0)
 
-    experts = _Experts(p, policy, compute_dtype(policy))
-    outs = []
+    cd = compute_dtype(policy)
+    experts = _Experts(p, policy, cd)
+    observed = observe.is_active()
+    if observed:
+        # the expert products do not go through apply_linear: the dispatch
+        # buffers, as the GEMM reads them, are the gate's and up's activation
+        h = buffers.to(cd)
+        observe.record(_expert_path("w_gate"), "act", h)
+        observe.record(_expert_path("w_up"), "act", h)
+    outs, acts = [], []
     for e in range(E):
         h = buffers[e]
         g = experts.linear(h, "w_gate", e, activation="silu")
-        u = experts.linear(h, "w_up", e)
-        outs.append(experts.linear(g * u, "w_down", e))
+        act = g * experts.linear(h, "w_up", e)
+        if observed:
+            acts.append(act)
+        outs.append(experts.linear(act, "w_down", e))
+    if observed:
+        # silu(g) * u of every expert: the down projection's activation
+        observe.record(_expert_path("w_down"), "act", torch.stack(acts))
     out_buf = torch.stack(outs)                                      # (E, C, D)
 
     gathered = out_buf[flat_e, torch.clamp(flat_pos, max=C - 1)]     # (T*k, D)

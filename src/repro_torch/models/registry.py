@@ -1,5 +1,6 @@
 """Model registry: one uniform interface over the ported families (dense,
-moe and whisper; ``loss`` and ``forward`` train the dense family only).
+moe and whisper; ``loss`` and ``forward`` for dense and moe: the dense
+family trains, both calibrate; whisper's refuse).
 
   model = build_model(cfg)                 # device="cuda" unless told otherwise
   params = model.init(seed, policy)        # quantized layer by layer under a posit policy
@@ -40,13 +41,14 @@ class Model:
     init_paged_cache: Callable = None
     decode_step_paged: Callable = None    # decode_step over the paged cache
     loss: Callable = None       # (params, batch, policy) -> (loss, {"ce", "aux"})
+    #                             (training: dense only, launch/steps.py)
     forward: Callable = None    # (params, batch, policy) -> hidden (B, S, D)
 
 
 def _training_not_ported(family: str) -> Callable:
     def refuse(*_):
         raise NotImplementedError(
-            f"training the {family} family is not ported yet: Queue 1 item 5b")
+            f"the {family} family's forward and loss are not ported yet: Queue 1 item 5b")
     return refuse
 
 

@@ -1,7 +1,8 @@
 """Decoder-only LM assembly for the dense and moe families: init, cache
 init, prefill and decode_step (the serving path), the paged serving cache
-and step (``init_paged_cache``, ``decode_step_paged``); for the dense family
-also ``forward`` and the sequence-chunked loss ``lm_loss`` (training).
+and step (``init_paged_cache``, ``decode_step_paged``), ``forward`` and the
+sequence-chunked loss ``lm_loss`` (training for the dense family;
+calibration for both).
 A moe block holds ``"moe"`` (``models/moe.py``) where a dense one holds
 ``"mlp"``.
 
@@ -43,16 +44,6 @@ def _require_served(cfg: ModelCfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} has no decoder-only path (this module builds "
             f"{DECODER_FAMILIES}; whisper is served through models/encdec.py)")
-
-
-def _require_dense(cfg: ModelCfg) -> None:
-    """Training (``forward``, ``lm_loss``) is ported for the dense family."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            "training the moe family (its forward and aux loss) is not ported yet: "
-            "Queue 1 item 5b")
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet (dense only)")
 
 
 def _ffn(p: dict, h: torch.Tensor, x: torch.Tensor, cfg: ModelCfg,
@@ -130,10 +121,12 @@ def _remat(fn, *args):
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPolicy, *,
             remat: bool = True) -> tuple:
     """tokens (B, S) -> hidden (B, S, D) after the final norm, and the aux
-    loss (0.0 for the dense family). Every layer is checkpointed under
-    ``remat``, so its GEMM and codec launches run again in the backward
-    pass."""
-    _require_dense(cfg)
+    loss: the moe layers' load-balancing losses summed over the layers, as
+    the reference's forward sums them (0.0 for the dense family). Every layer
+    is checkpointed under ``remat`` when a gradient is taken, so its GEMM and
+    codec launches run again in the backward pass (the moe family's
+    gradient is not ported: training refuses it)."""
+    _require_served(cfg)
     check_ported(policy)
     acfg = attn_cfg(cfg)
     rope = rope_tables(torch.arange(tokens.shape[1], device=tokens.device)[None],
@@ -145,12 +138,19 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPoli
         x = attn.apply_attention(p["attn"], acfg, h, policy, rope=rope, residual=x,
                                  path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
+        if "moe" in p:
+            y, aux_l = apply_moe(p["moe"], h, top_k=cfg.top_k,
+                                 capacity_factor=cfg.capacity_factor, policy=policy,
+                                 with_aux=True)
+            return x + y, aux_l
+        return apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp"), None
 
     x = apply_embedding(params["embed"], tokens)
-    for p in params["blocks"]:
-        x = _remat(layer, x, p) if remat else layer(x, p)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params["blocks"]:
+        x, aux_l = _remat(layer, x, p) if remat else layer(x, p)
+        if aux_l is not None:
+            aux = aux + aux_l
     return apply_rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 

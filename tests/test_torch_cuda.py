@@ -11,10 +11,11 @@ import dataclasses
 import pytest
 import torch
 
-from chip_smoke import (EagerTwin, assert_bit_identical, attn_inputs, check_small_whisper,
-                        eager_twin, live_codes, page_cache, prefix_requests, recorded_binds,
-                        serve_recorded_timed, served_recorded)
+from chip_smoke import (EagerTwin, assert_bit_identical, attn_inputs, check_small_moe_loss,
+                        check_small_whisper, eager_twin, live_codes, page_cache,
+                        prefix_requests, recorded_binds, serve_recorded_timed, served_recorded)
 from repro_torch import kernels
+from repro_torch.calib import observe
 from repro_torch.configs import get_arch
 from repro_torch.core.pack import pack_p8, unpack_p8
 from repro_torch.core.pcsr import P8_SERVE, OperandSlots, parse_policy
@@ -1191,3 +1192,71 @@ def test_prefilled_static_graph_matches_eager_on_card(dev, arch):
                         for i in range(B)])
         for c in done:
             assert c.tokens == g["tokens"][c.rid].tolist(), c.rid
+
+
+def _observer_inputs(dev) -> list:
+    """Zeros, subnormals, +-inf, NaN, powers of two and their neighbours at
+    every binade edge in range and past it, and a wide log-uniform draw."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    p = torch.exp2(torch.arange(-100, 70, dtype=torch.float32, device=dev))
+    edges = torch.cat([p, torch.nextafter(p, torch.zeros_like(p)), -p])
+    special = torch.tensor([0.0, -0.0, 1e-45, -2e-40, float("inf"), float("-inf"), float("nan"),
+                            3e38], device=dev)
+    n = 5 * ((1 << 20) + 1)
+    wide = torch.randn(n, generator=g, device=dev) * torch.exp2(
+        torch.randint(-40, 40, (n,), generator=g, device=dev).float())
+    return [edges, special, wide.reshape(-1, 5)]
+
+
+def _stats(arrays, device):
+    obs = observe.Observer()
+    with observe.observing(obs):
+        for a in arrays:
+            observe.record("s", "act", a.to(device))
+    return obs.get("s", "act")
+
+
+def test_observer_on_card_matches_cpu_without_a_host_sync(dev):
+    arrays = _observer_inputs(dev)
+    want = _stats(arrays, "cpu")
+    torch.cuda.synchronize()
+    obs = observe.Observer()
+    torch.cuda.set_sync_debug_mode("error")      # a host sync in a record raises
+    try:
+        with observe.observing(obs):
+            for a in arrays:
+                observe.record("s", "act", a)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = obs.get("s", "act")
+    for f in ("n", "zeros", "nonfinite", "abs_max", "size", "shape"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert (got.hist == want.hist).all()
+    # 3e38 squared overflows f32: both sums are inf
+    assert got.sum_sq == want.sum_sq == float("inf")
+    finite = _stats(arrays[2:], "cpu"), _stats(arrays[2:], dev)
+    assert abs(finite[1].sum_sq - finite[0].sum_sq) <= 1e-6 * finite[0].sum_sq
+
+
+def test_observer_records_inside_a_cuda_graph(dev):
+    """After one eager record (its accumulators made), a record captured in
+    a CUDA graph adds to them at every replay."""
+    x = _observer_inputs(dev)[2]
+    obs = observe.Observer()
+    with observe.observing(obs):
+        observe.record("s", "weight", x)
+        once = obs.get("s", "weight")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            observe.record("s", "weight", x)
+        graph.replay()
+        graph.replay()
+    torch.cuda.synchronize()
+    got = obs.get("s", "weight")
+    assert got.n == 3 * once.n and (got.hist == 3 * once.hist).all()
+    assert got.abs_max == once.abs_max
+
+
+def test_moe_loss_on_card_matches_cpu(dev):
+    res = check_small_moe_loss()
+    assert res["hidden_err"] <= res["hidden_bound"]

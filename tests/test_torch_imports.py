@@ -14,10 +14,13 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.calib.errmodel import measured_sq_rel_err
+from repro_torch.calib.search import calibration_batches
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax
 from repro_torch.core.device import resolve_device
@@ -62,13 +65,16 @@ def test_scan_covers_the_package():
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"lut.py", "pack.py", "policy.py"} <= names
     assert {"src/repro_torch/core/paged_kv.py", "src/repro_torch/launch/paged_engine.py"} <= rel
+    assert {f"src/repro_torch/calib/{m}.py" for m in ("__init__", "observe", "errmodel",
+                                                      "search")} <= rel
     for kernel in ("posit_quire_gemm", "posit_softmax"):
         for mod in ("__init__.py", "ops.py", "ref.py"):
             assert f"src/repro_torch/kernels/{kernel}/{mod}" in rel
 
 
 def test_entry_points_default_to_cuda():
-    for fn in (build_model, serve_mod.serve, params_from_jax, resolve_device):
+    for fn in (build_model, serve_mod.serve, params_from_jax, resolve_device,
+               calibration_batches, measured_sq_rel_err):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
 
 
@@ -82,6 +88,10 @@ def test_cuda_default_raises_without_cuda():
         serve_mod.serve("qwen2.5-14b", reduced=True, requests=1, prompt_len=4, gen=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         params_from_jax({"blocks": {}}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calibration_batches(cfg, np.random.default_rng(0), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        measured_sq_rel_err(8, 0, 0, n_samples=16)
 
 
 @pytest.mark.parametrize("fn", ["init_lm", "init_cache"])

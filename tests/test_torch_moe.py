@@ -29,11 +29,13 @@ from repro.models.registry import build_model as jax_build
 from repro_torch.configs import get_arch
 from repro_torch.convert import params_from_jax, tree_to_jax
 from repro_torch.core import pcsr, policy
+from repro_torch.launch import steps
 from repro_torch.launch.engine import ContinuousBatchingEngine, Request
 from repro_torch.launch.paged_engine import PagedContinuousBatchingEngine
 from repro_torch.models import moe
 from repro_torch.models.layers import policy_weight_bytes, quantize_params
 from repro_torch.models.registry import build_model
+from repro_torch.optim import AdamWConfig
 
 D, F, E, K = 128, 256, 8, 2
 POLICIES = {
@@ -204,10 +206,9 @@ def test_quantize_params_and_weight_bytes_match_reference(name):
 
 
 def test_training_moe_is_refused():
+    """The moe family's loss runs (forward only: tests/test_torch_moe_loss.py);
+    its train step is refused, naming the queue item of its gradient."""
     cfg = get_arch("olmoe-1b-7b").reduced()
     model = build_model(cfg, device="cpu")
-    params = model.init(0)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
     with pytest.raises(NotImplementedError, match="item 5b"):
-        model.loss(params, batch, pcsr.FP32_POLICY)
+        steps.make_train_step(model, pcsr.FP32_POLICY, AdamWConfig())

@@ -140,9 +140,11 @@ def test_remat_does_not_change_the_gradients():
 
 
 def test_other_families_raise():
+    """``forward`` takes the decoder-only families (dense and moe: the moe
+    family's forward is tests/test_torch_moe_loss.py's); any other raises."""
     with pytest.raises(NotImplementedError):
         transformer.forward({}, torch.zeros((1, 4), dtype=torch.int32),
                             get_arch("phi3-mini-3.8b").reduced().__class__(
-                                name="x", family="moe", n_layers=1, d_model=8, n_heads=1,
+                                name="x", family="whisper", n_layers=1, d_model=8, n_heads=1,
                                 n_kv=1, d_ff=8, vocab=8),
                             pcsr.FP32_POLICY)
