@@ -40,7 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      every whisper-medium linear (q/k/v and frame_proj with a bias, wo
      and the MLP down with a bias and the residual, the MLP up with a bias
      and gelu) at the encoder's 6,000 rows (the wgmma kernel) and a decode
-     step's 4; the calibration forward's products on float (bf16) weights:
+     step's 4; every gemma3-4b linear (q, k/v, o with the residual, gate
+     with silu, up, down with the residual) at a decode step's 4 rows and
+     a 1,536-token prefill (the wgmma kernel); the calibration forward's products on float (bf16) weights:
      phi3-mini-3.8b's q/o, gate (silu), down (the residual) and lm_head at
      M = 256 (the wgmma kernel) and olmoe-1b-7b's expert products at C =
      40 rows (the mid-M kernel);
@@ -52,11 +54,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      packed and on unpacked p8 weights, bit for bit the same;
   4. the decode-attention kernel against its plain version (ATTN_CHECKS:
      qwen2.5-14b's and phi3-mini-3.8b's heads, head_dim 256 at 7 q-heads a KV
-     head, whisper-medium's cross read (16/16 heads, d 64, S 1,500, the
-     no-append mode), p8, p16 and f32 KV, ragged rows, S up to 4,096), and its fused
-     append (the decode step's call) at qwen's heads at S 80 and 4,096 and at
-     whisper-medium's self-attention (16/16, d 64, S 64, ragged positions;
-     APPEND_CHECKS): each case within the
+     head and at gemma3-4b's 2 (8/4, S 1,600), whisper-medium's cross read
+     (16/16 heads, d 64, S 1,500, the no-append mode), p8, p16 and f32 KV,
+     ragged rows, S up to 4,096), and its fused append (the decode step's
+     call) at qwen's heads at S 80 and 4,096, at whisper-medium's
+     self-attention (16/16, d 64, S 64, ragged positions) and at gemma3-4b's
+     heads (8/4, d 256): a global layer's append at S 1,600 and a local
+     layer's rolling append over a full window (S = len = 1,024, the row
+     written at lens % 1,024 inside the buffer; APPEND_CHECKS): each case within the
      f32 contract's limit and a tight one that two bf16 controls must fail,
      the cache codes bit for bit those of the encode kernel and the row
      write, the output bit for bit the unfused call's, each row's bits alone
@@ -83,9 +88,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      under the quire) on the card against the same models on the CPU (plain
      versions), the reduced qwen2.5-14b on a 2 x 300-token prompt, whose
      prefill linears run on the wgmma kernel, and the reduced olmoe-1b-7b
-     (P8_SERVE and attn-p16-mlp-p8), granite-moe-3b-a800m and the reduced
+     (P8_SERVE and attn-p16-mlp-p8), granite-moe-3b-a800m, the reduced
      whisper-medium (the encoder, the cross K/V, 8 teacher-forced and 4
-     greedy steps; ``check_small_whisper``). Then the
+     greedy steps; ``check_small_whisper``) and the reduced gemma3-4b
+     widened to 6 layers (layer 5 global; a 30-token prompt past the window
+     of 16, decode writes crossing the rolling buffers' end; every KV
+     stack's lengths equal). Then the
      paths, each with
      every kernel's launch count set to 0 just before it and read just after:
      - qwen2.5-14b at full width and depth, random weights from a seed,
@@ -135,6 +143,19 @@ Phases, in order; any failure raises and the script exits non-zero:
        step's logits and both caches bit for bit, the captured step
        profiled (device time, idle share, launches by kernel) and the
        encoder timed (``whisper_graph_vs_eager``);
+     - the gemma3 path: gemma3-4b at full width and depth (34 layers, 5
+       local of window 1,024 to 1 global, RoPE bases 1e4 and 1e6, d 2,560,
+       8/4 heads, head_dim 256, a tied 262,144-word vocabulary), P8_SERVE,
+       4 requests of 1,536 prompt tokens and 64 generated, 4 slots, S_max
+       1,600, through ``serve`` (every local cache wraps in prefill and is
+       written inside its buffer in decode), each decode step 238 GEMM
+       launches, 34 attention launches and no encode launch, counted
+       exactly (``run_gemma3_path``); the same shape of run through the
+       captured grid engine and its eager twin, every step's logits bit
+       for bit, the step's device ms by the posit GEMM, attention, the tied
+       read-out and the glue, and the read-out timed alone
+       (``gemma3_graph_vs_eager``); ``serve_static`` at 4 x (1,536 + 16)
+       (``run_gemma3_static``);
      and a profiled decode step of each served model, of the long context
      and of the paged engine (48 paged attention launches a step), each
      from two engines on the same params and requests: the
@@ -223,7 +244,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      GEMV sizes, device time and CUDA-event time of a call
      (``dataflow_timings``); whisper's cross read (S 1,500, d 64) beside
      SDPA and its encoder's up projection (6,000 x 1,024 x 4,096, bias and
-     gelu) beside torch.matmul (``whisper_timings``).
+     gelu) beside torch.matmul (``whisper_timings``); gemma3-4b's decode
+     GEMM shapes at M = 4 and its global (S 1,600) and local (S 1,024)
+     attention read cold, beside the bound, the plain version and a PyTorch
+     call (``gemma3_timings``), and the summary's kernel rows again with the
+     gemma3 path's launch counts (``gemma3_kernels``).
 The lines before the last carry a {"kernels": [...]} summary and the card's
 name and power limit; the last line is {"ok": true, "device": {...}}.
 Details go to chiprun_out/chip_smoke_details.json. Every time is device
@@ -618,6 +643,13 @@ def gemm_cases():
                                      ("down", 4096, 1024, "none", True)):
             cases.append((f"whisper {part} M{M} {K}x{N}", M, K, N, P8_0, torch.float32, F32,
                           True, act, res))
+    # every gemma3-4b linear as the model calls it (no bias; gate with silu,
+    # wo and down with the block residual) at a 4-slot decode step (the
+    # decode tile) and a 1,536-token prefill (the wgmma kernel)
+    for M in (4, G3_PROMPT):
+        for part, K, N, act, res in G3_LINEARS:
+            cases.append((f"gemma3 {part} M{M} {K}x{N}", M, K, N, P8_0, torch.float32, F32,
+                          False, act, res))
     return cases
 
 
@@ -1124,8 +1156,9 @@ def attn_inputs(kv_bits, *, B=4, Hq=40, Hkv=8, d=128, S=512, lengths=(0, 1, 300,
 
 # (name, kv_bits, es, Hq, Hkv, d, S, lengths) of phase 4's kernel checks:
 # qwen2.5-14b's heads (40/8, d 128), phi3-mini-3.8b's (32/32, d 96),
-# gemma3-4b's head_dim (256) at 7 q-heads a KV head and whisper-medium's
-# cross read (16/16, d 64, S 1,500, no append); ragged rows (0, 1, mid, S)
+# head_dim 256 at 7 q-heads a KV head and at gemma3-4b's 2 (8/4, S 1,600,
+# its global layers' S_max) and whisper-medium's cross read (16/16, d 64,
+# S 1,500, no append); ragged rows (0, 1, mid, S)
 ATTN_CHECKS = (
     ("qwen p8 S512", 8, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
     ("qwen p16 S512", 16, 0, 40, 8, 128, 512, (0, 1, 300, 512)),
@@ -1134,6 +1167,7 @@ ATTN_CHECKS = (
     ("phi3 p16_1 d96 S4096", 16, 1, 32, 32, 96, 4096, (0, 1, 2051, 4096)),
     ("d256 7 q-heads p8 S4096", 8, 0, 28, 4, 256, 4096, (0, 1, 2051, 4096)),
     ("d256 7 q-heads f32 S1000", 0, 0, 28, 4, 256, 1000, (0, 1, 513, 1000)),
+    ("gemma3 p8 d256 S1600", 8, 0, 8, 4, 256, 1600, (0, 1, 801, 1600)),
     # whisper-medium's cross read: 16/16 heads, d 64, the 1,500 encoder rows
     ("whisper cross p8 d64 S1500", 8, 0, 16, 16, 64, 1500, (0, 1, 751, 1500)),
 )
@@ -1141,13 +1175,20 @@ ATTN_CHECKS = (
 
 # (name, kv_bits, Hq, Hkv, d, S, lengths, pos) of the fused append's checks
 # (the decode step's call): qwen2.5-14b's heads, a row at pos >= S
-# untouched, and whisper-medium's self-attention (16/16, d 64) at ragged
-# positions
+# untouched, whisper-medium's self-attention (16/16, d 64) at ragged
+# positions, and gemma3-4b's heads (8/4, d 256): a global layer's append at
+# S_max 1,600 and a local layer's rolling append over a full window (S = W
+# = 1,024, len W) at sequence positions 1,536-1,599, so the row lands inside
+# the buffer (pos = lens % W)
 APPEND_CHECKS = (
     ("append p8 S80", 8, 40, 8, 128, 80, (3, 80, 80, 0), (2, 80, 79, 0)),
     ("append p8 S4096", 8, 40, 8, 128, 4096, (3, 4096, 4096, 0), (2, 4096, 4095, 0)),
     ("append p16 S4096", 16, 40, 8, 128, 4096, (3, 4096, 4096, 0), (2, 4096, 4095, 0)),
     ("whisper self append p8 d64 S64", 8, 16, 16, 64, 64, (3, 64, 33, 1), (2, 64, 32, 0)),
+    ("gemma3 global append p8 d256 S1600", 8, 8, 4, 256, 1600, (1537, 1558, 1581, 1600),
+     (1536, 1557, 1580, 1599)),
+    ("gemma3 local rolling append p8 d256 S1024", 8, 8, 4, 256, 1024, (1024,) * 4,
+     tuple(p % 1024 for p in (1536, 1557, 1580, 1599))),
 )
 
 
@@ -1430,9 +1471,10 @@ def check_softmax() -> dict:
 # --------------------------------------------------------------- phase 5 ----
 
 def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05,
-                      prompt_len: int = 16) -> dict:
-    """A reduced model: the card's kernels against the CPU's plain versions,
-    same seed-made weights, prefill + 4 greedy decode steps. Bounds: P8_SERVE
+                      prompt_len: int = 16, layers: int = 0) -> dict:
+    """A reduced model (``layers`` deep where given): the card's kernels
+    against the CPU's plain versions, same seed-made weights, prefill + 4
+    greedy decode steps, and every KV stack's lengths equal. Bounds: P8_SERVE
     rounds activations to bf16 and K/V to p8, where one flipped rounding
     moves logits ~1e-2 (0.05), and so do the per-layer presets p8-packed
     (bf16 compute) and attn-p16-mlp-p8 (p16 and packed-p8 weights, 0.05);
@@ -1441,6 +1483,8 @@ def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05,
     (2^-13), ~1e-3 on a logit (2e-3). A prompt past LARGE_M tokens (2 x
     300) runs every prefill linear on the large-M kernels (asserted)."""
     cfg = arch.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     params_cpu = cpu_model.init(0, policy)
     params_gpu = _to(params_cpu, DEV)
@@ -1467,6 +1511,11 @@ def check_small_model(arch=QWEN, policy=P8_SERVE, bound: float = 0.05,
         tok = lc.argmax(-1).to(torch.int32)
         lc, cc = cpu_model.decode_step(params_cpu, tok, cc, policy)
         lg, cg = gpu_model.decode_step(params_gpu, tok.to(DEV), cg, policy)
+    assert torch.equal(cg["lens"].cpu(), cc["lens"]), "reduced model: lens differ"
+    for name in ("kv", "kv_local"):
+        if name in cc:
+            assert torch.equal(cg[name]["len"].cpu(), cc[name]["len"]), \
+                f"reduced model: {name} lengths differ"
     return {"arch": cfg.name, "policy": policy.describe(), "prompt": [2, prompt_len],
             "max_logit_err": worst, "bound": bound, "greedy_agree": agree,
             "margin_clear": clear, "prefill_large_m_launches": large}
@@ -1918,6 +1967,7 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
             variants_us[key] = variants_us.get(key, 0.0) + us / steps
     # the gather / index_put kernels (a KV write outside the attention kernel)
     index_kernels = sum(c for n, _, c in by_name if "index" in n.lower())
+    groups = device_groups(totals, steps)
     quire_kernels = sum(c for n, _, c in by_name if "quire" in n)
     quire_readouts = sum(c for n, _, c in by_name if "quire" in n and "readout" in n)
     # the profiler slows the host several-fold, so the idle share is the
@@ -1937,9 +1987,32 @@ def _step_stats(eng, steps: int, share: bool) -> dict:
             "quire_readout_kernels_per_step": quire_readouts / steps,
             "quire_per_product_share": shares,
             "kernel_counts": {n: c for n, _, c in by_name},
+            "device_ms_per_step_by_group": groups,
             "device_idle_share": max(0.0, 1 - busy_per_step_us / (step_ms * 1e3)),
             "top": [{"name": n[:90], "device_us_per_step": us / steps, "calls_per_step":
                      c / steps} for n, us, c in by_name[:14]]}
+
+
+# the port's kernels by name: the posit GEMM's (its bf16 passes and split-K
+# sums included) and attention's; any other GEMM or GEMV kernel is a
+# library's (the tied read-out's torch.matmul)
+POSIT_GEMM_KERNELS = re.compile(r"(gemm|gemv|mid_a16|large_wgmma|large_fma|a_bf16|b_bf16|"
+                                r"splitk_epilogue)_kernel")
+LIBRARY_GEMM = re.compile(r"gemm|gemv|xmma|cutlass", re.IGNORECASE)
+
+
+def device_groups(totals: dict, steps: int) -> dict:
+    """Device ms a step by group, from {kernel name: (us, calls)} over
+    ``steps`` steps: the posit GEMM, attention, library GEMMs (cuBLAS) and
+    the glue (every other kernel)."""
+    out = {"posit_gemm": 0.0, "attention": 0.0, "library_gemm": 0.0, "glue": 0.0}
+    for name, (us, _) in totals.items():
+        short = kernel_name(name)
+        key = ("posit_gemm" if POSIT_GEMM_KERNELS.search(short) else
+               "attention" if short.startswith("attn_kernel") else
+               "library_gemm" if LIBRARY_GEMM.search(short) else "glue")
+        out[key] += us / steps / 1e3
+    return out
 
 
 # a profiled request's new tokens: room for the profiled window's retries
@@ -1949,7 +2022,8 @@ PROFILE_GEN = 32
 def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int = 4,
                    share: bool = False, swap=None, engine=ContinuousBatchingEngine,
                    engine_kw=None, slots: int = 4, model=None, params=None,
-                   keep_recorded: bool = False, twin: bool = True) -> dict:
+                   keep_recorded: bool = False, twin: bool = True,
+                   gen: int = PROFILE_GEN) -> dict:
     """Where a decode step's time goes, with the step captured in a CUDA
     graph and run eagerly (``EagerTwin``): the full model at 4 busy slots,
     the same params, requests and seeds for both. Each engine first serves
@@ -1965,7 +2039,8 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     graph's numbers, the twin's under "eager" and the comparison under
     "graph_vs_eager". ``engine`` is the engine class (its eager twin from
     ``eager_twin``), built with ``engine_kw`` too, at ``slots`` slots and
-    as many requests (``profile_requests``). ``model`` and ``params`` are
+    as many requests of ``prompt_len`` + ``gen`` tokens
+    (``profile_requests``). ``model`` and ``params`` are
     the caller's if given (else built from ``arch``, seed 0); with
     ``keep_recorded`` the graph run's recorded streams and logits are under
     "recorded". Without ``twin`` only the graph half runs: its numbers, with
@@ -1978,9 +2053,9 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     halves = (("graph", engine), ("eager", eager_twin(engine)))
     for name, cls in halves if twin else halves[:1]:
         kernels.reset_launches()
-        eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + PROFILE_GEN,
+        eng = cls(model, params, policy, max_slots=slots, S_max=prompt_len + gen,
                   **(engine_kw or {}))
-        reqs = profile_requests(arch, slots, prompt_len)
+        reqs = profile_requests(arch, slots, prompt_len, gen)
         recorded = served_recorded(eng, reqs, swap)
         if swap is not None:
             eng.apply_policy(policy)
@@ -2043,10 +2118,10 @@ def profile_decode(arch=QWEN, policy=P8_SERVE, prompt_len: int = 64, steps: int 
     return out
 
 
-def profile_requests(arch, slots: int, prompt_len: int) -> list:
+def profile_requests(arch, slots: int, prompt_len: int, gen: int = PROFILE_GEN) -> list:
     """The requests of a ``profile_decode`` run: ``slots`` prompts at t = 0."""
     return poisson_requests(slots, arrival_rate=0.0, prompt_lens=(prompt_len,),
-                            max_new_tokens=PROFILE_GEN, vocab=arch.vocab, seed=1)
+                            max_new_tokens=gen, vocab=arch.vocab, seed=1)
 
 
 def graph_line(path: str, prof: dict) -> dict:
@@ -2065,21 +2140,23 @@ def profile_log(prof: dict) -> dict:
 
 
 def assert_kv_write_fused(prof: dict, arch, name: str, encodes: float = 0,
-                          attention: str = "posit_attention") -> None:
+                          attention: str = "posit_attention", rope_bases: int = 1) -> None:
     """A decode step writes its K/V rows inside the attention kernel: one
     ``attention`` launch a layer (the dense kernel, or the paged one), none
     of the other, no encode launch beyond ``encodes`` and no gather or
-    index_put kernel of a KV write."""
+    index_put kernel of a KV write (the only kernels named "index" are the
+    ``torch.arange`` of each of the ``rope_bases`` RoPE tables)."""
     per_step = prof["launches_per_step"]
     other = "posit_attention_paged" if attention == "posit_attention" else "posit_attention"
     assert per_step[attention] == arch.n_layers and per_step[other] == 0, \
         f"{name} decode step: {per_step[attention]} {attention}, {per_step[other]} {other}"
     assert per_step["posit_encode"] == encodes, \
         f"{name} decode step: {per_step['posit_encode']} encode launches, {encodes} expected"
-    # one gather a step is the token embedding's; a KV write outside the
-    # kernel adds two a layer
-    assert prof["index_kernels_per_step"] <= 1, \
-        f"{name} decode step: {prof['index_kernels_per_step']} index kernels"
+    # rope_freqs' arange runs as elementwise_kernel_with_index, one a RoPE
+    # base; a KV write outside the kernel adds two index kernels a layer
+    assert prof["index_kernels_per_step"] <= rope_bases, \
+        f"{name} decode step: {prof['index_kernels_per_step']} index kernels " + \
+        str({n[:120]: c for n, c in prof["kernel_counts"].items() if "index" in n.lower()})
 
 
 def quire_step_share(eng) -> dict:
@@ -3768,6 +3845,152 @@ def whisper_timings() -> list:
     return rows
 
 
+# ------------------------------------------------------------ the gemma3 path ----
+
+GEMMA3 = "gemma3-4b"
+# 4 requests of 1,536 prompt tokens and 64 generated at 4 slots, S_max 1,600:
+# every local layer's 1,024-row buffer wraps in prefill and is written
+# inside it in decode; static mode 4 x (1,536 + 16)
+G3_SLOTS, G3_PROMPT, G3_GEN, G3_STATIC_GEN = 4, 1536, 64, 16
+# (part, K, N, activation, residual) of a gemma3-4b layer's linears
+G3_LINEARS = (("q", 2560, 2048, "none", False), ("k/v", 2560, 1024, "none", False),
+              ("o", 2048, 2560, "none", True), ("gate", 2560, 10240, "silu", False),
+              ("up", 2560, 10240, "none", False), ("down", 10240, 2560, "none", True))
+G3_KN = tuple(dict.fromkeys((K, N) for _, K, N, _, _ in G3_LINEARS))
+
+
+def gemma3_launches(cfg, steps: int, prefills: int) -> dict:
+    """The kernel launches of a gemma3 run of ``steps`` decode steps and
+    ``prefills`` prefill calls (1,536 tokens a row): a decode step's 7
+    linears a layer on the decode tile and one attention launch a layer (the
+    row's encode and write inside it: no encode launch); a prefill's 7
+    linears a layer on the wgmma kernel and its K and V blocks encoded a
+    layer. The tied read-out is ``torch.matmul``, no GEMM launch."""
+    return {"posit_gemm": steps * 7 * cfg.n_layers,
+            "posit_attention": steps * cfg.n_layers,
+            "posit_gemm_large_tc": prefills * 7 * cfg.n_layers,
+            "posit_encode": prefills * 2 * cfg.n_layers}
+
+
+def assert_gemma3_launches(run: dict, want: dict, what: str) -> None:
+    for k, v in want.items():
+        assert run[k] == v, f"{what}: {run[k]} {k} launches, {v} expected ({run})"
+    others = {k: v for k, v in run.items() if v and k not in want}
+    assert not others, f"{what}: launches of other kernels {others}"
+
+
+def run_gemma3_path() -> tuple[dict, dict]:
+    """gemma3-4b at full width and depth (34 layers, 5 local of window 1,024
+    (RoPE base 1e4) to 1 global (1e6), d 2,560, 8 q-heads over 4 KV heads,
+    head_dim 256, d_ff 10,240, a tied 262,144-word vocabulary), random
+    weights from seed 0, P8_SERVE, 4 requests of 1,536 prompt tokens and 64
+    generated, 4 slots, greedy, through ``serve`` (continuous): every launch
+    of the run counted exactly (``gemma3_launches``)."""
+    events = []
+    cfg = get_arch(GEMMA3)
+    kernels.reset_launches()
+    report = serve(GEMMA3, policy="p8-serve", max_slots=G3_SLOTS, requests=G3_SLOTS,
+                   prompt_len=G3_PROMPT, gen=G3_GEN, seed=0, device="cuda", emit=events.append)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    assert report["requests"] == G3_SLOTS, report["requests"]
+    assert all(n == G3_GEN for n in report["completion_tokens"].values()), \
+        report["completion_tokens"]
+    assert report["nonfinite_logit_rows"] == 0, "non-finite logits on the gemma3 path"
+    assert report["kv_nar_codes"] == 0, "NaR codes in the gemma3 KV cache"
+    assert report["decode_steps"] == G3_GEN - 1, report["decode_steps"]
+    assert_gemma3_launches(report["kernel_launches"],
+                           gemma3_launches(cfg, report["decode_steps"], G3_SLOTS), "gemma3 path")
+    DETAILS["gemma3_serve_events"] = events
+    return report, launches
+
+
+def gemma3_graph_vs_eager() -> dict:
+    """The same shape of run (4 x (1,536 + 64), other prompts) through the
+    grid engine as shipped, its decode step one captured CUDA graph, and its
+    ``EagerTwin`` on one set of params (``profile_decode``: every step's
+    logits bit for bit across the windows' wrap, the same tokens and launch
+    counts); each decode step exactly 238 GEMM launches, 34 attention
+    launches and no encode launch; the profiled step's device ms by group,
+    and the tied read-out (``embedding_logits``, 4 rows over the f32 (262,144,
+    2,560) table) timed alone beside its byte bound."""
+    from repro_torch.models.layers import embedding_logits
+
+    cfg = get_arch(GEMMA3)
+    model = build_model(cfg)
+    params = model.init(0, P8_SERVE)
+    prof = profile_decode(cfg, P8_SERVE, prompt_len=G3_PROMPT, gen=G3_GEN, slots=G3_SLOTS,
+                          model=model, params=params)
+    per_step = prof["launches_per_step"]
+    want = gemma3_launches(cfg, 1, 0)
+    assert per_step["posit_gemm"] == want["posit_gemm"] == 238, per_step
+    # two RoPE bases: two arange kernels a step
+    assert_kv_write_fused(prof, cfg, "gemma3", rope_bases=2)
+    prof["index_kernels"] = {n[:160]: c / prof["profiled_steps"]
+                             for n, c in prof["kernel_counts"].items() if "index" in n.lower()}
+    h = torch.randn((G3_SLOTS, 1, cfg.d_model), generator=gen(31), device=DEV)
+    table = params["embed"]["table"]
+    nbytes = table.numel() * 4 + h.numel() * 4 + G3_SLOTS * cfg.vocab * 4
+    b_ms, by = bound_ms(nbytes, 2.0 * G3_SLOTS * cfg.d_model * cfg.vocab, "f32")
+    prof["readout"] = {"ms": event_ms(lambda: embedding_logits(params["embed"], h)),
+                       "bound_ms": b_ms, "bound_by": by, "bytes": nbytes}
+    del model, params, table
+    torch.cuda.empty_cache()
+    return prof
+
+
+def run_gemma3_static() -> dict:
+    """gemma3-4b through ``serve_static``: one batch of 4 x 1,536 prompt
+    tokens (one prefill call at 6,144 rows, the local caches rolled), 16
+    greedy tokens through the captured step; every launch counted."""
+    from repro_torch.launch.serve import serve_static
+
+    cfg = get_arch(GEMMA3)
+    events = []
+    kernels.reset_launches()
+    report = serve_static(GEMMA3, policy="p8-serve", batch=G3_SLOTS, prompt_len=G3_PROMPT,
+                          gen=G3_STATIC_GEN, seed=0, device="cuda", emit=events.append)
+    torch.cuda.synchronize()
+    assert report["mode"] == "static" and report["nonfinite_logit_rows"] == 0, report
+    assert report["kv_nar_codes"] == 0, "NaR codes in the static gemma3 cache"
+    assert_gemma3_launches(report["kernel_launches"],
+                           gemma3_launches(cfg, G3_STATIC_GEN - 1, 1), "gemma3 static")
+    return {k: report[k] for k in ("arch", "batch", "prompt_len", "gen", "decode_tok_per_s",
+                                   "decode_steps", "compile_s", "prefill_s", "setup_s",
+                                   "sample_tokens", "kv_cache_bytes", "cache_bytes_total",
+                                   "kernel_launches")}
+
+
+def gemma3_timings() -> list:
+    """Phase 6's rows of gemma3-4b's decode shapes beside the bound and a
+    PyTorch call: the GEMM at M = 4 on each linear shape (p8 B, the decode
+    tile) against torch.matmul bf16 on the decoded weight; attention read
+    cold at a global layer's S 1,600 and a local layer's full window
+    (1,024), 4 rows of 8 q-heads over 4 KV heads, d 256, p8, against SDPA
+    on the decoded f32 cache; each with its plain version's time."""
+    cfg = get_arch(GEMMA3)
+    rows = [dict(r, case=f"gemma3 gemm M4 {r['K']}x{r['N']} p8")
+            for r in gemm_timings(4, G3_KN, plain=True)]
+    for name, S in (("global", G3_PROMPT + G3_GEN), ("local", cfg.window)):
+        q, k, v, lens = attn_inputs(8, B=G3_SLOTS, Hq=cfg.n_heads, Hkv=cfg.n_kv, d=cfg.hd, S=S,
+                                    lengths=(S,) * G3_SLOTS, seed=40 + S)
+        live = S * G3_SLOTS
+        nbytes = 2 * live * cfg.n_kv * cfg.hd + 2 * q.numel() * 4 + lens.numel() * 4
+        b_ms, by = bound_ms(nbytes, 4.0 * cfg.n_heads * cfg.hd * live, "f32")
+        ms, n_rot = _cold_ms(lambda kc, vc: attn_ops.decode_attention(q, kc, vc, lens, 0,
+                                                                      kv_bits=8), (k, v))
+        kd, vd = (codec_ops.decode(t, 0, nbits=8) for t in (k, v))
+        rows.append({"case": f"gemma3 {name} attention B4 8/4 d256 S{S} p8", "ms": ms,
+                     "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "rotated_caches": n_rot,
+                     "plain_ms": time_ms(lambda: posit_decode_attention_ref(q, k, v, lens, 0,
+                                                                            kv_bits=8),
+                                         windows=3, calls=2),
+                     "library_ms": sdpa_ms(q, kd, vd, lens)})
+        del q, k, v, kd, vd
+    torch.cuda.empty_cache()
+    return rows
+
+
 # ------------------------------------------------------ the calibration path ----
 
 CALIB_N, CALIB_BATCH, CALIB_SEQ = 4, 4, 64   # 4 batches of 4 x 64 tokens
@@ -4162,6 +4385,9 @@ def main() -> int:
     log("reduced_model_olmoe_" + MIXED, **check_small_model(olmoe, mixed_policy))
     log("reduced_model_granite", **check_small_model(get_arch(GRANITE)))
     log("reduced_model_whisper", **check_small_whisper())
+    # gemma3 widened to 6 layers (layer 5 global), a 30-token prompt past the
+    # window of 16, decode writes crossing the rolling buffers' end
+    log("reduced_model_gemma3", **check_small_model(get_arch(GEMMA3), prompt_len=30, layers=6))
 
     keys = ("arch", "requests", "tokens", "decode_tok_per_s", "p50_token_ms", "p95_token_ms",
             "p50_ttft_ms", "decode_steps", "setup_s", "makespan_s", "kv_bytes_per_token",
@@ -4309,6 +4535,22 @@ def main() -> int:
     log("whisper_profile", **w_prof)
     DETAILS["whisper_profile"] = w_prof
     log("whisper_phase", seconds=time.perf_counter() - t_whisper)
+    # the gemma3 path: continuous serving through the entry point, graph
+    # against eager on the same shape, then static mode
+    card = nvidia_smi()
+    t_g3 = time.perf_counter()
+    g3_report, g3_launches = run_gemma3_path()
+    log("gemma3_path", card=card, seconds=time.perf_counter() - t_g3, launches=g3_launches,
+        **{k: g3_report[k] for k in keys + ("weight_bytes_policy", "weight_bytes_f32",
+                                            "kv_cache_bytes")})
+    DETAILS["gemma3_serve_report"] = g3_report
+    torch.cuda.empty_cache()
+    g3_prof = gemma3_graph_vs_eager()
+    log("profile_gemma3", card=card, **profile_log(g3_prof))
+    DETAILS["gemma3_decode_profile"] = g3_prof
+    log("gemma3_static", card=card, **run_gemma3_static())
+    torch.cuda.empty_cache()
+    log("gemma3_phase", card=card, seconds=time.perf_counter() - t_g3)
     # every profiled path's decode step is one captured graph, bit for bit its
     # eager twin (asserted in profile_decode)
     for path, p in (("p8_serve", prof), ("long", l_prof), ("mixed", m_prof),
@@ -4319,9 +4561,12 @@ def main() -> int:
     log("graph_vs_eager", path="whisper", **{k: w_prof[k] for k in (
         "captured", "decode_steps_compared", "bit_identical", "launches_equal", "graph",
         "eager", "step_ms", "device_busy_ms_per_step", "device_idle_share")})
+    # gemma3's step: device ms by the posit GEMM, attention, the tied
+    # read-out (cuBLAS) and the glue, and the read-out timed alone
+    log("graph_vs_eager", card=card, **graph_line("gemma3", g3_prof),
+        device_ms_per_step=g3_prof["device_ms_per_step_by_group"], readout=g3_prof["readout"])
     # the calibration path after the served paths, their memory freed:
     # phi3-mini-3.8b (15.3 GB of f32 weights) then olmoe-1b-7b (27.6 GB)
-    card = nvidia_smi()
     torch.cuda.empty_cache()
     t_calib = time.perf_counter()
     calib_phi3 = run_calib_phi3()
@@ -4369,6 +4614,7 @@ def main() -> int:
                                 "long": l_launches, "softmax": sm_launches,
                                 "paged": p_launches, "paged_serve": ps_launches,
                                 "moe": moe_launches, "whisper": w_launches,
+                                "gemma3": g3_launches,
                                 "calib_phi3": calib_phi3["launches"],
                                 "calib_olmoe": calib_olmoe["launches"],
                                 **{"train_" + k: v["launches_run"]
@@ -4383,6 +4629,12 @@ def main() -> int:
                     posit_gemm_large_fma=train_lines["p16-train"]["launches_run"]
                     ["posit_gemm_large_fma"])
     rows = time_kernels(launches, errs)
+    # the same kernels' rows with the gemma3 path's launch counts, and its
+    # decode shapes timed
+    log("gemma3_kernels", card=card, kernels=[dict(r, launches=g3_launches[r["name"]])
+                                              for r in rows if g3_launches.get(r["name"])])
+    DETAILS["gemma3_timings"] = gemma3_timings()
+    log("gemma3_timings", card=card, rows=DETAILS["gemma3_timings"])
     DETAILS["whisper_timings"] = whisper_timings()
     log("whisper_timings", rows=DETAILS["whisper_timings"])
     DETAILS["train_timings"] = train_timings()

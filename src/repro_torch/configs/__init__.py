@@ -1,9 +1,9 @@
-"""Architecture registry of the port: the dense- and moe-family configs and
-whisper-medium (the encoder-decoder family, served in ``serve.py``'s static
-mode).
+"""Architecture registry of the port: the dense- and moe-family configs,
+gemma3-4b (local sliding-window layers over rolling KV caches, one global
+layer in six) and whisper-medium (the encoder-decoder family, served in
+``serve.py``'s static mode).
 
-The other families of the reference (gemma3, zamba, xlstm, vlm) are not
-ported yet.
+The other families of the reference (zamba, xlstm, vlm) are not ported yet.
 """
 from __future__ import annotations
 
@@ -11,8 +11,8 @@ import importlib
 
 from repro_torch.configs.base import ModelCfg
 
-ARCH_IDS = ("granite-moe-3b-a800m", "olmoe-1b-7b", "phi3-mini-3.8b", "qwen2.5-14b",
-            "whisper-medium", "yi-34b")
+ARCH_IDS = ("gemma3-4b", "granite-moe-3b-a800m", "olmoe-1b-7b", "phi3-mini-3.8b",
+            "qwen2.5-14b", "whisper-medium", "yi-34b")
 
 
 def get_arch(name: str) -> ModelCfg:

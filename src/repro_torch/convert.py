@@ -39,7 +39,7 @@ STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def _stacked_depths(cfg: ModelCfg) -> dict:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "gemma3"):
         return {"blocks": cfg.n_layers}
     if cfg.family == "whisper":
         return {"enc_blocks": cfg.enc_layers, "dec_blocks": cfg.n_layers}

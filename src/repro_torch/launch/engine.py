@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
+from repro_torch.models.transformer import kv_stacks
 
 
 @dataclasses.dataclass
@@ -249,7 +250,7 @@ class ContinuousBatchingEngine:
         model = self.model
         c = self.cache
         self._bind_decode(lambda p, t, cache: model.decode_step(p, t, cache, policy),
-                          (c["lens"], c["pos"], c["kv"]["len"]))
+                          (c["lens"], c["pos"]) + tuple(kv["len"] for kv in kv_stacks(c)))
 
     def _bind_decode(self, decode: Callable, state: tuple) -> None:
         """``self._decode`` = ``decode(params, token_row, cache)``: run eagerly
@@ -455,9 +456,9 @@ class ContinuousBatchingEngine:
         serving watchdog calls it; the port has no watchdog yet, so no
         serving path here does."""
         self._evict(slot, now, "numerics")
-        kv = self.cache["kv"]
-        for name in ("k", "v"):
-            kv[name][:, slot].zero_()
+        for kv in kv_stacks(self.cache):
+            for name in ("k", "v"):
+                kv[name][:, slot].zero_()
 
     def _release_slot(self, slot: int) -> None:
         """Per-eviction cache cleanup hook (the slot grid reuses rows as they
@@ -465,11 +466,12 @@ class ContinuousBatchingEngine:
 
     def inject_nar_into(self, slot: int, count: int) -> None:
         """Chaos hook: poison the first ``count`` occupied KV positions of
-        ``slot`` with NaR codes (at least one), in every layer."""
+        ``slot`` with NaR codes (at least one), in every layer (a rolling
+        buffer's first rows, at most all of them)."""
         n = max(1, min(count, max(int(self.lens[slot]), 1)))
-        kv = self.cache["kv"]
-        for name in ("k", "v"):
-            kv[name][:, slot, :, :n].fill_(_nar_code(kv[name]))
+        for kv in kv_stacks(self.cache):
+            for name in ("k", "v"):
+                kv[name][:, slot, :, :n].fill_(_nar_code(kv[name]))
 
     # ------------------------------------------------------------------ run ---
     def run(self, requests: list, *, clock: Optional[Callable] = None) -> list:

@@ -40,7 +40,7 @@ import torch
 from repro_torch.core.paged_kv import PagedKVCache, PageGeometry, PoolExhausted
 from repro_torch.launch.engine import (ContinuousBatchingEngine, Request, _nar_code,
                                        require_prefill)
-from repro_torch.models.transformer import attn_cfg
+from repro_torch.models.transformer import attn_cfg, no_paged_path
 
 __all__ = ["PagedContinuousBatchingEngine"]
 
@@ -74,7 +74,7 @@ class PagedContinuousBatchingEngine(ContinuousBatchingEngine):
                  page_bytes: int = 2048, n_blocks: Optional[int] = None, **kw):
         require_prefill(model)
         if model.decode_step_paged is None or model.init_paged_cache is None:
-            raise ValueError(f"family {model.cfg.family!r} has no paged decode path")
+            raise ValueError(no_paged_path(model.cfg.family))
         fmt = policy.kv_cache
         code_bytes = (1 if fmt is not None and fmt.nbits == 8 else
                       2 if fmt is not None or policy.compute_dtype != "f32" else 4)

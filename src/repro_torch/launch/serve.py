@@ -87,8 +87,9 @@ def percentile_ms(values, q: float) -> float:
 
 
 # the cache containers whose "k"/"v" leaves are K/V arrays (the reference's
-# launch/engine.py KV_CONTAINERS, less the families the port lacks)
-KV_CONTAINERS = ("kv", "self", "cross")
+# launch/engine.py KV_CONTAINERS, less the families the port lacks, and
+# gemma3's rolling buffers, which the reference keeps in "kv")
+KV_CONTAINERS = transformer.KV_STACKS + ("self", "cross")
 
 
 def _leaves(tree, keys=()):
@@ -125,6 +126,8 @@ def kv_health(cache: dict, policy: TransPolicy) -> dict:
     nar = 0
     absmax = 0.0
     for codes in _kv_arrays(cache):
+        if codes.numel() == 0:     # a stack with no layer (a reduced gemma3 has no global)
+            continue
         vals = codec_ops.decode(codes, fmt.es, nbits=fmt.nbits)
         nar += int(torch.isnan(vals).sum())
         absmax = max(absmax, float(torch.nan_to_num(vals, nan=0.0).abs().max()))
@@ -203,6 +206,8 @@ def serve(arch: str, *, policy: str = "p8-serve", precision_policy: Optional[str
     model = build_model(cfg, device=device)
     if model.prefill is None:
         sys.exit(f"--continuous needs a prefill entry point (family {cfg.family!r} has none)")
+    if paged and model.decode_step_paged is None:
+        sys.exit(f"--paged: {transformer.no_paged_path(cfg.family)}")
     t0 = time.perf_counter()
     params, pol = init_params(model, pol, seed, calibration, emit)
     weight_report = policy_weight_bytes(params, pol)

@@ -1,8 +1,10 @@
 """Attention for the dense decoder and the encoder-decoder: training and
-encoder self-attention (full-sequence SDPA, causal or not, no cache),
-prefill (the same, filling the KV cache) and one decode step over a
-posit-coded KV cache: self-attention, which writes its new K/V row, or
-cross-attention, which reads a prefilled encoder cache as it is.
+encoder self-attention (full-sequence SDPA, causal or not, sliding-window
+where ``cfg.window`` is set, no cache), prefill (the same, filling the KV
+cache; a window-sized rolling cache keeps the last positions at their
+``pos % rows`` slots) and one decode step over a posit-coded KV cache:
+self-attention, which writes its new K/V row, or cross-attention, which
+reads a prefilled encoder cache as it is.
 
 KV-cache transprecision: when ``policy.kv_cache`` is a posit format the cache
 holds uint8/uint16 codes. Prefill encodes its K/V block on write (the encode
@@ -61,30 +63,39 @@ def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], n, hd)
 
 
-def _sdpa_block(qg, k, v, scale, *, offset: int, causal: bool):
+def _sdpa_block(qg, k, v, scale, *, offset: int, causal: bool, window: int = 0):
     """One query block. qg: (B,Lq,Hkv,g,hd); k/v: (B,T,Hkv,hd); offset: the
-    absolute position of the block's first query. Returns (B,Lq,Hkv,g,hd)."""
+    absolute position of the block's first query; ``window`` > 0 keeps the
+    keys ``kp > qp - window`` (0: unbounded). Returns (B,Lq,Hkv,g,hd)."""
     Lq = qg.shape[1]
     T = k.shape[1]
     scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32) * scale,
                           k.to(torch.float32))
-    if causal:
+    if causal or window > 0:
         qp = torch.arange(Lq, device=qg.device)[:, None] + offset
         kp = torch.arange(T, device=qg.device)[None, :]
-        scores = torch.where((kp <= qp)[None, None, None], scores, NEG_INF)
+        m = torch.ones((Lq, T), dtype=torch.bool, device=qg.device)
+        if causal:
+            m &= kp <= qp
+        if window > 0:
+            m &= kp > qp - window
+        scores = torch.where(m[None, None, None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", p, v.to(torch.float32))
 
 
-def _sdpa(q, k, v, scale, *, causal: bool = True, q_chunk: int = Q_CHUNK):
+def _sdpa(q, k, v, scale, *, causal: bool = True, window: int = 0,
+          q_chunk: int = Q_CHUNK):
     """The full-sequence SDPA of training and prefill, in plain torch (the
     reference computes it outside any kernel too), one (B, H, q_chunk, T)
-    score slab at a time; differentiable.
+    score slab at a time; differentiable. ``window`` > 0 is a sliding
+    window: a query sees itself and the ``window - 1`` keys before it.
     q: (B,S,H,hd), k/v: (B,T,Hkv,hd)."""
     B, S, H, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, S, Hkv, H // Hkv, hd)
-    outs = [_sdpa_block(qg[:, i:i + q_chunk], k, v, scale, offset=i, causal=causal)
+    outs = [_sdpa_block(qg[:, i:i + q_chunk], k, v, scale, offset=i, causal=causal,
+                        window=window)
             for i in range(0, S, q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
@@ -132,8 +143,9 @@ def _self_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPo
                     path: str = "attn") -> tuple:
     """Full-sequence self-attention without a cache, causal as ``cfg`` says:
     the q/k/v linears, RoPE at positions 0..S-1 where ``cfg.use_rope``
-    (``rope`` their ``rope_tables``, made here when None), the plain SDPA
-    and wo with ``residual`` fused. Returns (y, k, v), k and v (B, S, Hkv,
+    (``rope`` their ``rope_tables`` at ``cfg.rope_base``, made here when
+    None), the plain SDPA (over ``cfg.window`` where it is set) and wo with
+    ``residual`` fused. Returns (y, k, v), k and v (B, S, Hkv,
     hd) after RoPE."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
@@ -144,7 +156,8 @@ def _self_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPo
         if rope is None:
             rope = rope_tables(torch.arange(S, device=x.device)[None], hd, cfg.rope_base)
         q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-    out = _sdpa(q, k, v, hd ** -0.5, causal=cfg.causal)
+    out = _sdpa(q, k, v, hd ** -0.5, causal=cfg.causal,
+                window=cfg.window if not cfg.is_cross else 0)
     y = apply_linear(params["wo"], out.reshape(B, S, H * hd), policy, residual=residual,
                      path=f"{path}/wo")
     return y, k, v
@@ -154,28 +167,37 @@ def apply_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, policy: TransPo
                     rope=None, residual: Optional[torch.Tensor] = None,
                     path: str = "attn") -> torch.Tensor:
     """Training attention (the reference's ``apply_attention_dynwin`` at
-    window 0 and the layer's RoPE base), and the encoder's (``cfg.causal``
-    False, no RoPE): self-attention over the whole sequence, no cache,
-    differentiable. x: (B, S, D); ``rope`` the tables of positions 0..S-1
-    (shared by every layer; made here when None); ``residual`` fuses into
+    the layer's window, ``cfg.window``, 0 for full causal, and its RoPE
+    base), and the encoder's (``cfg.causal`` False, no RoPE): self-attention
+    over the whole sequence, no cache, differentiable. x: (B, S, D);
+    ``rope`` the tables of positions 0..S-1 at ``cfg.rope_base`` (shared by
+    every layer of that base; made here when None); ``residual`` fuses into
     the wo epilogue (the reference adds it after wo: the same f32 sum)."""
     return _self_attention(params, cfg, x, policy, rope=rope, residual=residual, path=path)[0]
 
 
 def prefill_attention(params: dict, cfg: AttnCfg, x: torch.Tensor, cache: dict,
-                      policy: TransPolicy, *,
+                      policy: TransPolicy, *, rope=None,
                       residual: Optional[torch.Tensor] = None, path: str = "attn") -> tuple:
     """Full-sequence causal attention that also fills the KV cache (in place).
-    x: (B, S, D); ``residual`` fuses into the wo epilogue; ``path`` names the
-    projections for a per-layer policy. Returns (y, cache)."""
+    x: (B, S, D); ``residual`` fuses into the wo epilogue; ``rope`` the
+    tables of positions 0..S-1 at ``cfg.rope_base`` (made here when None);
+    ``path`` names the projections for a per-layer policy. A sliding-window
+    layer (``cfg.window``) may have fewer cache rows than the prompt: its
+    rolling buffer keeps the last ``rows`` positions, position p at row
+    ``p % rows``, so decode continues there, and ``len`` is ``min(S,
+    rows)``, as in the reference. Returns (y, cache)."""
     S = x.shape[1]
     Sc = cache["k"].shape[2]
-    if S > Sc:
+    if S > Sc and not cfg.window:
         raise ValueError(f"prompt of {S} tokens exceeds the cache's {Sc} rows")
-    y, k, v = _self_attention(params, cfg, x, policy, residual=residual, path=path)
-    _store(cache["k"], k.transpose(1, 2), 0, policy)
-    _store(cache["v"], v.transpose(1, 2), 0, policy)
-    cache["len"].fill_(S)
+    y, k, v = _self_attention(params, cfg, x, policy, rope=rope, residual=residual, path=path)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)             # (B, Hkv, S, hd)
+    if S > Sc:
+        kt, vt = (torch.roll(t[:, :, S - Sc:], shifts=S % Sc, dims=2) for t in (kt, vt))
+    _store(cache["k"], kt, 0, policy)
+    _store(cache["v"], vt, 0, policy)
+    cache["len"].fill_(min(S, Sc))
     return y, cache
 
 
@@ -201,8 +223,9 @@ def _decode_attention(params: dict, cfg: AttnCfg, x_t: torch.Tensor, pos: torch.
                       path: str = "attn") -> torch.Tensor:
     """A decode step's attention around its kernel call: the q/k/v linears
     (q alone for cross-attention, whose K/V are the encoder's, already in
-    the cache), RoPE at ``pos`` (``rope`` the step's tables, made here when
-    None), then ``attend(q (B, H, hd), k_new (B, Hkv, hd), v_new, es,
+    the cache), RoPE at the rows' sequence positions (``rope`` the step's
+    tables; made here from ``pos`` when None, which a rolling layer, whose
+    write index is not its position, may not ask), then ``attend(q (B, H, hd), k_new (B, Hkv, hd), v_new, es,
     kv_bits)``, all float32 (k_new and v_new None for cross-attention), for
     the (B, H, hd) output, and wo with ``residual`` fused."""
     B = x_t.shape[0]
@@ -216,6 +239,9 @@ def _decode_attention(params: dict, cfg: AttnCfg, x_t: torch.Tensor, pos: torch.
         vn = _split_heads(apply_linear(params["wv"], x_t, policy, path=f"{path}/wv"), Hkv, hd)
         if cfg.use_rope:
             if rope is None:
+                if rolling:
+                    raise ValueError("a rolling layer writes at its position modulo the "
+                                     "buffer: pass the step's RoPE tables")
                 rope = rope_tables(pos.reshape(B, 1), hd, cfg.rope_base)
             q, kn = apply_rope(q, *rope), apply_rope(kn, *rope)
         kn, vn = (t.reshape(B, Hkv, hd).to(torch.float32).contiguous() for t in (kn, vn))
@@ -233,15 +259,17 @@ def decode_attention_step(params: dict, cfg: AttnCfg, x_t: torch.Tensor, cache: 
                           path: str = "attn") -> tuple:
     """One decode step. x_t: (B, 1, D); pos: (B,) int32 per-row cache write
     index (= the row's sequence position; a rolling cache's caller passes it
-    modulo the buffer size). Counts the new K/V row in ``cache["len"]``
+    modulo the buffer size, ``rolling=True``, and the RoPE tables of the
+    sequence positions). Counts the new K/V row in ``cache["len"]``
     (clamped to the buffer size, which is all a rolling cache's validity
     needs), then writes it in place and attends in one call of the
     decode-attention kernel (``decode_attention_append``). Cross-attention
     (``cfg.is_cross``) reads the prefilled encoder cache instead: no k/v
     linears, no write, ``cache["len"]`` unchanged, one call of the kernel's
     no-append mode (``decode_attention``). ``rope`` is the step's
-    ``rope_tables`` of ``pos`` (shared by every layer; made here when
-    None); ``residual`` fuses into the wo epilogue; ``path`` names the
+    ``rope_tables`` of the rows' positions at ``cfg.rope_base`` (shared by
+    every layer of that base; made here from ``pos`` when None, except on a
+    rolling call); ``residual`` fuses into the wo epilogue; ``path`` names the
     projections for a per-layer policy. Returns (y, cache)."""
 
     def attend(q, kn, vn, es, kv_bits):

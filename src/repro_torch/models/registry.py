@@ -1,6 +1,6 @@
 """Model registry: one uniform interface over the ported families (dense,
-moe and whisper; ``loss`` and ``forward`` for dense and moe: the dense
-family trains, both calibrate; whisper's refuse).
+moe, gemma3 and whisper; ``loss`` and ``forward`` for dense, moe and gemma3:
+the dense family trains, all three calibrate; whisper's refuse).
 
   model = build_model(cfg)                 # device="cuda" unless told otherwise
   params = model.init(seed, policy)        # quantized layer by layer under a posit policy
@@ -11,10 +11,13 @@ family trains, both calibrate; whisper's refuse).
   cache = model.init_paged_cache(B, n_blocks, block_tokens, table_width, policy)
   logits, cache = model.decode_step_paged(params, tokens_t, cache, policy)
 
-The whisper family has no prefill and no paged entry points (``None``), as
-in the reference: ``init_cache(params, {"frames": (B, T, D)}, policy,
-S_max)`` runs the encoder and prefills the cross K/V, and the decoder
-prompt goes through ``decode_step`` token by token.
+gemma3 has no paged entry points (``None``): as in the reference, only
+dense and moe page their KV, and the paged engine refuses the rest
+(``transformer.no_paged_path``). The whisper family has no prefill and no
+paged entry points (``None``), as in the reference: ``init_cache(params,
+{"frames": (B, T, D)}, policy, S_max)`` runs the encoder and prefills the
+cross K/V, and the decoder prompt goes through ``decode_step`` token by
+token.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ def build_model(cfg: ModelCfg, device="cuda") -> Model:
             f"family {cfg.family!r} is not ported yet; the port serves "
             f"{transformer.DECODER_FAMILIES} and whisper")
     dev = resolve_device(device)
+    paged = cfg.family in transformer.PAGED_FAMILIES
 
     def init(seed: int, policy=None) -> dict:
         gen = torch.Generator(device=dev)
@@ -75,10 +79,10 @@ def build_model(cfg: ModelCfg, device="cuda") -> Model:
         prefill=lambda p, tokens, pol, **kw: transformer.prefill(p, tokens, cfg, pol, **kw),
         decode_step=lambda p, tok, cache, pol: transformer.decode_step(p, tok, cache, cfg,
                                                                        pol),
-        init_paged_cache=lambda B, n_blocks, bt, width, pol: transformer.init_paged_cache(
-            cfg, B, n_blocks, bt, width, pol, device=dev),
-        decode_step_paged=lambda p, tok, cache, pol: transformer.decode_step_paged(
-            p, tok, cache, cfg, pol),
+        init_paged_cache=(lambda B, n_blocks, bt, width, pol: transformer.init_paged_cache(
+            cfg, B, n_blocks, bt, width, pol, device=dev)) if paged else None,
+        decode_step_paged=(lambda p, tok, cache, pol: transformer.decode_step_paged(
+            p, tok, cache, cfg, pol)) if paged else None,
         loss=lambda p, batch, pol: transformer.lm_loss(p, batch, cfg, pol),
         forward=lambda p, batch, pol: transformer.forward(p, batch["tokens"], cfg, pol)[0],
     )

@@ -1,16 +1,24 @@
-"""Decoder-only LM assembly for the dense and moe families: init, cache
-init, prefill and decode_step (the serving path), the paged serving cache
-and step (``init_paged_cache``, ``decode_step_paged``), ``forward`` and the
-sequence-chunked loss ``lm_loss`` (training for the dense family;
-calibration for both).
+"""Decoder-only LM assembly for the dense, moe and gemma3 families: init,
+cache init, prefill and decode_step (the serving path), the paged serving
+cache and step (``init_paged_cache``, ``decode_step_paged``; dense and moe
+only, as in the reference), ``forward`` and the sequence-chunked loss
+``lm_loss`` (training for the dense family; calibration for all three).
 A moe block holds ``"moe"`` (``models/moe.py``) where a dense one holds
-``"mlp"``.
+``"mlp"``. gemma3 is the dense block over a layer pattern
+(``gemma3_layer_meta``): ``local_ratio`` sliding-window layers (``window``
+keys, RoPE base ``rope_base``) then one global layer (full causal, base
+``global_rope_base``), its embedding tied to the read-out.
 
 Parameters: ``{"embed": {"table"}, "blocks": [per-layer dicts], "final_norm",
 "lm_head"}``; the reference stacks the layers on a leading axis instead
-(``convert.params_from_jax`` maps one onto the other). The KV cache keeps the
-reference's stacked layout ``kv.k/v: (L, B, Hkv, S, hd)``, ``kv.len: (L, B)``,
-and is updated in place.
+(``convert.params_from_jax`` maps one onto the other). The KV cache is
+updated in place and holds one stack a cache length (``KV_STACKS``):
+``kv.k/v: (L, B, Hkv, S, hd)``, ``kv.len: (L, B)`` for the layers that keep
+every position (all of a dense or moe model's, the reference's stacked
+layout; gemma3's global layers), and for gemma3's local layers
+``kv_local`` at ``min(S, window)`` rows, a rolling buffer each (the
+reference keeps a list of per-layer caches of the two sizes instead).
+``cache_slots`` says where layer i's cache lives.
 """
 from __future__ import annotations
 
@@ -36,7 +44,12 @@ LOSS_CHUNK = 1024  # sequence-chunked CE to bound peak logits memory
 
 # the decoder-only families this module builds; the port serves whisper
 # too, through models/encdec.py
-DECODER_FAMILIES = ("dense", "moe")
+DECODER_FAMILIES = ("dense", "moe", "gemma3")
+# the families whose KV cache pages (the reference's init_paged_cache)
+PAGED_FAMILIES = ("dense", "moe")
+# the cache's stacked KV containers: full-length caches, then gemma3's
+# window-sized rolling ones
+KV_STACKS = ("kv", "kv_local")
 
 
 def _require_served(cfg: ModelCfg) -> None:
@@ -44,6 +57,18 @@ def _require_served(cfg: ModelCfg) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} has no decoder-only path (this module builds "
             f"{DECODER_FAMILIES}; whisper is served through models/encdec.py)")
+
+
+def no_paged_path(family: str) -> str:
+    """Why a family outside PAGED_FAMILIES cannot serve paged."""
+    return (f"family {family!r} has no paged decode path (the paged KV serves the "
+            f"uniform stacked-cache families {PAGED_FAMILIES}; it keeps the slot grid)")
+
+
+def _require_paged(cfg: ModelCfg) -> None:
+    _require_served(cfg)
+    if cfg.family not in PAGED_FAMILIES:
+        raise ValueError(no_paged_path(cfg.family))
 
 
 def _ffn(p: dict, h: torch.Tensor, x: torch.Tensor, cfg: ModelCfg,
@@ -58,9 +83,57 @@ def _ffn(p: dict, h: torch.Tensor, x: torch.Tensor, cfg: ModelCfg,
     return apply_swiglu(p["mlp"], h, policy, residual=x, path="mlp")
 
 
-def attn_cfg(cfg: ModelCfg) -> AttnCfg:
+def attn_cfg(cfg: ModelCfg, *, window: int = 0, rope_base: Optional[float] = None) -> AttnCfg:
     return AttnCfg(d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                   head_dim=cfg.hd, qkv_bias=cfg.qkv_bias, rope_base=cfg.rope_base)
+                   head_dim=cfg.hd, qkv_bias=cfg.qkv_bias,
+                   rope_base=cfg.rope_base if rope_base is None else rope_base,
+                   window=window)
+
+
+def gemma3_layer_meta(cfg: ModelCfg) -> tuple:
+    """Per-layer (windows, RoPE bases): ``local_ratio`` local layers (window
+    ``cfg.window``, base ``cfg.rope_base``) per global one (window 0, base
+    ``cfg.global_rope_base``), as python numbers."""
+    is_global = [i % (cfg.local_ratio + 1) == cfg.local_ratio for i in range(cfg.n_layers)]
+    return (tuple(0 if g else cfg.window for g in is_global),
+            tuple(cfg.global_rope_base if g else cfg.rope_base for g in is_global))
+
+
+def layer_attn_cfgs(cfg: ModelCfg) -> list:
+    """Every layer's AttnCfg: one for all of a dense or moe model; gemma3's
+    window and RoPE base by layer."""
+    if cfg.family != "gemma3":
+        return [attn_cfg(cfg)] * cfg.n_layers
+    return [attn_cfg(cfg, window=w, rope_base=b) for w, b in zip(*gemma3_layer_meta(cfg))]
+
+
+def cache_slots(cfg: ModelCfg) -> list:
+    """Layer i's KV cache as (container, index in its stack): ``"kv"`` for a
+    layer that keeps every position, ``"kv_local"`` for a sliding-window
+    layer's rolling buffer (gemma3)."""
+    slots, count = [], {name: 0 for name in KV_STACKS}
+    for acfg in layer_attn_cfgs(cfg):
+        name = "kv_local" if acfg.window else "kv"
+        slots.append((name, count[name]))
+        count[name] += 1
+    return slots
+
+
+def kv_stacks(cache: dict) -> list:
+    """The cache's stacked KV containers (``{"k", "v", "len"}`` each)."""
+    return [cache[name] for name in KV_STACKS if name in cache]
+
+
+def _layer_cache(cache: dict, slot: tuple) -> dict:
+    name, j = slot
+    return attn.layer_cache(cache[name], j)
+
+
+def _rope_by_base(positions: torch.Tensor, acfgs: list) -> dict:
+    """``rope_tables`` of ``positions`` at each RoPE base the layers use (one
+    for a dense or moe model, two for gemma3), shared by the layers."""
+    return {b: rope_tables(positions, acfgs[0].head_dim, b)
+            for b in dict.fromkeys(a.rope_base for a in acfgs)}
 
 
 def init_lm(gen: torch.Generator, cfg: ModelCfg, *, device="cuda",
@@ -128,15 +201,14 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPoli
     gradient is not ported: training refuses it)."""
     _require_served(cfg)
     check_ported(policy)
-    acfg = attn_cfg(cfg)
-    rope = rope_tables(torch.arange(tokens.shape[1], device=tokens.device)[None],
-                       acfg.head_dim, acfg.rope_base)
+    acfgs = layer_attn_cfgs(cfg)
+    ropes = _rope_by_base(torch.arange(tokens.shape[1], device=tokens.device)[None], acfgs)
 
-    def layer(x, p):
+    def layer(x, p, acfg):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the block residuals fuse into the wo and down projections' epilogues
-        x = attn.apply_attention(p["attn"], acfg, h, policy, rope=rope, residual=x,
-                                 path="attn")
+        x = attn.apply_attention(p["attn"], acfg, h, policy, rope=ropes[acfg.rope_base],
+                                 residual=x, path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
         if "moe" in p:
             y, aux_l = apply_moe(p["moe"], h, top_k=cfg.top_k,
@@ -147,8 +219,8 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPoli
 
     x = apply_embedding(params["embed"], tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in params["blocks"]:
-        x, aux_l = _remat(layer, x, p) if remat else layer(x, p)
+    for p, acfg in zip(params["blocks"], acfgs):
+        x, aux_l = _remat(layer, x, p, acfg) if remat else layer(x, p, acfg)
         if aux_l is not None:
             aux = aux + aux_l
     return apply_rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
@@ -180,32 +252,43 @@ def lm_loss(params: dict, batch: dict, cfg: ModelCfg, policy: TransPolicy, *,
 
 def init_cache(cfg: ModelCfg, B: int, S_max: int, policy: TransPolicy, *,
                device="cuda") -> dict:
+    """The slot grid's cache: ``"kv"`` (S_max rows a layer) for the layers
+    that keep every position, and for gemma3 ``"kv_local"``, its local
+    layers' rolling buffers of ``min(S_max, window)`` rows (stacked; an
+    empty stack where the model has no such layer), with ``lens``/``pos``."""
     _require_served(cfg)
     device = resolve_device(device)
-    return {
-        "kv": attn.init_kv_cache(B, S_max, attn_cfg(cfg), policy, device=device,
-                                 n_layers=cfg.n_layers),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
-        # per-row next-write positions (ragged continuous batching)
-        "lens": torch.zeros((B,), dtype=torch.int32, device=device),
-    }
+    acfg = attn_cfg(cfg)
+    depth = [name for name, _ in cache_slots(cfg)].count
+    cache = {"kv": attn.init_kv_cache(B, S_max, acfg, policy, device=device,
+                                      n_layers=depth("kv"))}
+    if cfg.family == "gemma3":
+        cache["kv_local"] = attn.init_kv_cache(B, min(S_max, cfg.window), acfg, policy,
+                                               device=device, n_layers=depth("kv_local"))
+    cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+    # per-row next-write positions (ragged continuous batching)
+    cache["lens"] = torch.zeros((B,), dtype=torch.int32, device=device)
+    return cache
 
 
 def _decode_layers(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
                    policy: TransPolicy, attend) -> tuple:
     """The decode step's body, shared by the slot grid and the paged pool:
     ``attend(layer_params, acfg, h, i, rope, residual)`` is layer i's
-    attention with the residual fused into wo."""
+    attention with the residual fused into wo, ``rope`` the tables of the
+    rows' positions ``lens`` at the layer's base (made on the device from
+    ``lens`` at every call, so a captured step recomputes them at each
+    replay)."""
     _require_served(cfg)
     check_ported(policy)
     lens = cache["lens"]
-    acfg = attn_cfg(cfg)
+    acfgs = layer_attn_cfgs(cfg)
     x = apply_embedding(params["embed"], token_t[:, None])
-    rope = rope_tables(lens[:, None], acfg.head_dim, acfg.rope_base)
-    for i, p in enumerate(params["blocks"]):
+    ropes = _rope_by_base(lens[:, None], acfgs)
+    for i, (p, acfg) in enumerate(zip(params["blocks"], acfgs)):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the residuals fuse into wo's epilogue (and a dense MLP's down projection's)
-        x = attend(p["attn"], acfg, h, i, rope, x)
+        x = attend(p["attn"], acfg, h, i, ropes[acfg.rope_base], x)
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = _ffn(p, h, x, cfg, policy)
     h = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -220,15 +303,23 @@ def decode_step(params: dict, token_t: torch.Tensor, cache: dict, cfg: ModelCfg,
     """One token for the whole batch. token_t: (B,) int -> logits (B, V).
 
     Every row writes at its own position ``cache["lens"]`` and masks by its
-    layer's ``len``. The cache is updated in place and returned: every
-    tensor of it, ``lens`` and ``pos`` included, stays the same tensor, so a
-    CUDA graph of the step reads and writes the same buffers at each replay.
+    layer's ``len``; a rolling (gemma3 local) layer writes at ``lens % rows``
+    and attends to ``min(lens + 1, rows)`` rows, RoPE still at ``lens``. The
+    cache is updated in place and returned: every tensor of it, ``lens`` and
+    ``pos`` included, stays the same tensor, so a CUDA graph of the step
+    reads and writes the same buffers at each replay (the write index is
+    computed from ``lens`` on the device, at each replay).
     """
     lens = cache["lens"]
+    slots = cache_slots(cfg)
+    local = cache.get("kv_local")
+    at_local = lens % local["k"].shape[3] if local is not None else None
 
     def attend(p, acfg, h, i, rope, residual):
-        return attn.decode_attention_step(p, acfg, h, attn.layer_cache(cache["kv"], i), lens,
-                                          policy, rope=rope, residual=residual,
+        rolling = slots[i][0] == "kv_local"
+        return attn.decode_attention_step(p, acfg, h, _layer_cache(cache, slots[i]),
+                                          at_local if rolling else lens, policy,
+                                          rolling=rolling, rope=rope, residual=residual,
                                           path="attn")[0]
 
     return _decode_layers(params, token_t, cache, cfg, policy, attend)
@@ -240,8 +331,11 @@ def init_paged_cache(cfg: ModelCfg, B: int, n_blocks: int, block_tokens: int,
     ``kv.k/v: (L, n_blocks, Hkv, block_tokens, hd)``; a block table
     ``(B, table_width)`` int32 shared by every layer, sentinel-filled
     (``n_blocks``: every entry empty until the engine installs real tables,
-    so writes drop and reads are zeros); and the slot grid's ``lens``/``pos``."""
-    _require_served(cfg)
+    so writes drop and reads are zeros); and the slot grid's ``lens``/``pos``.
+    Only the dense and moe families page their KV (``PAGED_FAMILIES``):
+    gemma3's window-sized local buffers keep the slot grid, as in the
+    reference."""
+    _require_paged(cfg)
     device = resolve_device(device)
     return {
         "kv": attn.init_paged_kv_pool(n_blocks, block_tokens, attn_cfg(cfg), policy,
@@ -260,6 +354,7 @@ def decode_step_paged(params: dict, token_t: torch.Tensor, cache: dict, cfg: Mod
     ``lens[b] % bt``, and attends to ``lens[b] + 1`` positions. Every tensor
     of the cache (the table, ``lens``, ``pos``, the pools) stays the same
     tensor, updated in place."""
+    _require_paged(cfg)
     lens, table, kv = cache["lens"], cache["table"], cache["kv"]
     lengths = lens + 1
 
@@ -274,20 +369,25 @@ def decode_step_paged(params: dict, token_t: torch.Tensor, cache: dict, cfg: Mod
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ModelCfg, policy: TransPolicy,
             *, S_max: Optional[int] = None) -> tuple:
-    """Run the full prompt, build the cache, return last-position logits."""
+    """Run the full prompt, build the cache, return last-position logits.
+    A gemma3 local layer attends over its window and keeps the last
+    ``min(S_max, window)`` positions in its rolling buffer."""
     _require_served(cfg)
     check_ported(policy)
     B, S = tokens.shape
     S_max = S_max or S
     device = params["embed"]["table"].device
     cache = init_cache(cfg, B, S_max, policy, device=device)
-    acfg = attn_cfg(cfg)
+    acfgs = layer_attn_cfgs(cfg)
+    slots = cache_slots(cfg)
+    ropes = _rope_by_base(torch.arange(S, device=device)[None], acfgs)
     x = apply_embedding(params["embed"], tokens)
-    for i, p in enumerate(params["blocks"]):
+    for i, (p, acfg) in enumerate(zip(params["blocks"], acfgs)):
         h = apply_rmsnorm(p["ln1"], x, cfg.norm_eps)
         # the residuals fuse into wo's epilogue (and a dense MLP's down projection's)
-        x, _ = attn.prefill_attention(p["attn"], acfg, h, attn.layer_cache(cache["kv"], i),
-                                      policy, residual=x, path="attn")
+        x, _ = attn.prefill_attention(p["attn"], acfg, h, _layer_cache(cache, slots[i]),
+                                      policy, rope=ropes[acfg.rope_base], residual=x,
+                                      path="attn")
         h = apply_rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = _ffn(p, h, x, cfg, policy)
     h = apply_rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)

@@ -545,6 +545,8 @@ GRAPH_POLICIES = {
     "moe": ("olmoe-1b-7b", lambda: P8_SERVE),
     "moe-mixed": ("granite-moe-3b-a800m",
                   lambda: get_precision_policy("attn-p16-mlp-p8", base=P8_SERVE)),
+    # two local layers, rolling buffers of 16 rows: the longer requests wrap
+    "gemma3": ("gemma3-4b", lambda: P8_SERVE),
 }
 
 
@@ -1164,10 +1166,10 @@ def test_whisper_static_graph_matches_eager_on_card(dev):
             assert torch.equal(g["cache"][c][kv], e["cache"][c][kv]), (c, kv)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-14b", "olmoe-1b-7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "olmoe-1b-7b", "gemma3-4b"])
 def test_prefilled_static_graph_matches_eager_on_card(dev, arch):
-    """Static mode on a family with a prefill (the reduced qwen2.5-14b and
-    olmoe-1b-7b, P8_SERVE): the batch prefilled, then the decode step
+    """Static mode on a family with a prefill (the reduced qwen2.5-14b,
+    olmoe-1b-7b and gemma3-4b, P8_SERVE): the batch prefilled, then the decode step
     captured over the cache the prefill built, against the same step run
     eagerly: every step's logits, the tokens and the K/V cache bit for bit.
     qwen's tokens are also the continuous engine's on the same prompts, all
@@ -1184,8 +1186,9 @@ def test_prefilled_static_graph_matches_eager_on_card(dev, arch):
     assert len(g_seen) == G - 1
     assert_bit_identical(g_seen, e_seen, f"{arch} static")
     assert torch.equal(g["tokens"], e["tokens"])
-    for kv in ("k", "v", "len"):
-        assert torch.equal(g["cache"]["kv"][kv], e["cache"]["kv"][kv]), kv
+    for name in ("kv", "kv_local"):
+        for kv in ("k", "v", "len") if name in g["cache"] else ():
+            assert torch.equal(g["cache"][name][kv], e["cache"][name][kv]), (name, kv)
     if arch == "qwen2.5-14b":
         eng = ContinuousBatchingEngine(model, params, P8_SERVE, max_slots=B, S_max=L + G)
         done = eng.run([Request(rid=i, prompt=prompts[i].astype(np.int32), max_new_tokens=G)

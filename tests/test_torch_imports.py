@@ -141,6 +141,22 @@ def test_cpu_tensors_take_the_plain_version():
                                      "posit_softmax"}
 
 
+def test_gemma3_entry_points_default_to_cuda():
+    """gemma3-4b's model, cache and both serving modes go to the CUDA device
+    unless told otherwise; without CUDA they raise."""
+    assert inspect.signature(serve_mod.serve_static).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is usable")
+    cfg = get_arch("gemma3-4b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        transformer.init_cache(cfg, 2, 8, P8_SERVE)
+    for fn in (serve_mod.serve, serve_mod.serve_static):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn("gemma3-4b", reduced=True, prompt_len=20, gen=2)
+
+
 def test_paged_entry_points_default_to_cuda():
     """The paged cache and the paged serve default to the CUDA device; without
     CUDA they raise instead of running on the CPU."""
